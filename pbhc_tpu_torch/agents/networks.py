@@ -1,11 +1,14 @@
-"""Actor networks in torch (counterpart of `pbhc_tpu/agents/networks.py`).
+"""Actor and critic networks in torch (counterpart of `pbhc_tpu/agents/networks.py`).
 
-`MLP` and `GaussianActor` (`networks.py:18`, `:75`): an MLP mean and a
-state-independent learnable std. Layer order and widths match the flax
-modules, so `agents/convert.py` maps a flax checkpoint onto them one to one.
+`MLP`, `GaussianActor` (an MLP mean and a state-independent learnable std),
+`Critic` (one value per reward head) and the gaussian helpers
+(`networks.py:18`, `:75-98`, `:170-176`). Layer order and widths match the
+flax modules, so `agents/convert.py` maps flax params onto them one to one,
+and `flax_init_` draws fresh weights as flax's `Dense` does.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -27,6 +30,9 @@ class MLP(nn.Module):
     def forward(self, x):
         return self.net(x)
 
+    def linear_layers(self):
+        return [m for m in self.net if isinstance(m, nn.Linear)]
+
 
 class GaussianActor(nn.Module):
     """MLP mean + state-independent std; returns (mean, std) like the flax module."""
@@ -42,18 +48,69 @@ class GaussianActor(nn.Module):
         return mean, (torch.abs(self.std) + 1e-8).expand_as(mean)
 
     def linear_layers(self):
-        return [m for m in self.mlp.net if isinstance(m, nn.Linear)]
+        return self.mlp.linear_layers()
+
+
+class Critic(nn.Module):
+    """MLP with one value output per reward head (`networks.py:91`)."""
+
+    def __init__(self, in_dim: int, hidden_dims: Sequence[int], num_values: int,
+                 activation: str = "ELU"):
+        super().__init__()
+        self.mlp = MLP(in_dim, hidden_dims, num_values, activation)
+
+    def forward(self, obs):
+        return self.mlp(obs)
+
+    def linear_layers(self):
+        return self.mlp.linear_layers()
+
+
+def flax_init_(net, generator: torch.Generator):
+    """Fresh weights as flax's `Dense` draws them: kernels lecun_normal (a
+    normal truncated at two standard deviations, scaled to variance 1/fan_in)
+    and zero biases. `std` keeps its constructor value (`init_noise_std`)."""
+    for lin in net.linear_layers():
+        # 0.8796... is the std of a unit normal truncated to [-2, 2]
+        # (jax.nn.initializers.variance_scaling, "truncated_normal")
+        sd = math.sqrt(1.0 / lin.in_features) / 0.87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(lin.weight, std=sd, a=-2.0 * sd, b=2.0 * sd, generator=generator)
+            lin.bias.zero_()
+    return net
+
+
+def gaussian_log_prob(mean, std, actions):
+    """Sum over the action axis (`networks.py:170`)."""
+    var = std ** 2
+    return (-0.5 * ((actions - mean) ** 2) / var - torch.log(std) - 0.5 * math.log(2 * math.pi)).sum(-1)
+
+
+def gaussian_entropy(std):
+    """Sum over the action axis (`networks.py:175`)."""
+    return (0.5 + 0.5 * math.log(2 * math.pi) + torch.log(std)).sum(-1)
+
+
+def _layer_config(cfg, which):
+    c = cfg.algo.config
+    phase = str(c.get("phase_embed", {}).get("type", "Original"))
+    if phase != "Original":
+        raise NotImplementedError(f"phase_embed.type={phase!r}: phase-aware networks are "
+                                  "ROADMAP queue 1 item 8")
+    lc = c.module_dict[which].layer_config
+    if str(lc.get("type", "MLP")) != "MLP":
+        raise NotImplementedError(f"{which} type {lc.type!r} is ROADMAP queue 1 item 8")
+    return lc
 
 
 def actor_from_config(cfg, in_dim: int, num_actions: int) -> GaussianActor:
     """The actor of `cfg.algo.config.module_dict` (as `mh_ppo.py:67-87` builds it)."""
-    c = cfg.algo.config
-    phase = str(c.get("phase_embed", {}).get("type", "Original"))
-    if phase != "Original":
-        raise NotImplementedError(f"phase_embed.type={phase!r}: phase-aware actors are "
-                                  "ROADMAP queue 1 item 8")
-    lc = c.module_dict.actor.layer_config
-    if str(lc.get("type", "MLP")) != "MLP":
-        raise NotImplementedError(f"actor type {lc.type!r} is ROADMAP queue 1 item 8")
-    return GaussianActor(in_dim, tuple(lc.hidden_dims), num_actions, float(c.init_noise_std),
-                         str(lc.activation))
+    lc = _layer_config(cfg, "actor")
+    return GaussianActor(in_dim, tuple(lc.hidden_dims), num_actions,
+                         float(cfg.algo.config.init_noise_std), str(lc.activation))
+
+
+def critic_from_config(cfg, in_dim: int, num_values: int) -> Critic:
+    """The critic of `cfg.algo.config.module_dict` (`mh_ppo.py:87`)."""
+    lc = _layer_config(cfg, "critic")
+    return Critic(in_dim, tuple(lc.hidden_dims), num_values, str(lc.activation))

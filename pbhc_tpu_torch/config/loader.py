@@ -1,9 +1,14 @@
 """Config access for the port (counterpart of `pbhc_tpu/config/loader.py`).
 
-Run configs are read from JSON snapshots under `config/snapshots/`, one per
-committed run directory (`artifacts/<run>/config.yaml` -> `<run>.json`), so the
-port needs no YAML parser. A test holds each snapshot equal to
-`yaml.safe_load` of its source file.
+Configs are read from JSON snapshots under `config/snapshots/`, so the port
+needs no YAML parser. There are two kinds:
+- one per committed run directory (`artifacts/<run>/config.yaml` ->
+  `<run>.json`); a test holds each equal to `yaml.safe_load` of its source;
+- one per CLI selection set the port runs (`COMPOSED`): the JAX loader's
+  `compose(selections)` with no overrides. `compose` here applies dotted
+  overrides on top of it; a test holds that equal to the JAX `compose` for the
+  overrides the port's commands use (none of them touches an interpolation
+  source, which the JAX loader resolves after the overrides).
 """
 from __future__ import annotations
 
@@ -86,3 +91,39 @@ def apply_overrides(cfg: dict, overrides=()):
         k, v = ov.split("=", 1)
         set_dotted(cfg, k, parse_scalar(v))
     return cfg
+
+
+# CLI selection set -> the snapshot of its composition
+COMPOSED = {
+    ("exp=motion_tracking", "robot=g1_23dof", "obs=motion_tracking", "rewards=motion_tracking",
+     "domain_rand=main", "simulator=tpu"): "motion_tracking_g1_23dof",
+}
+
+# top-level keys that are overrides, not group selections (`loader.py:189-200`),
+# plus the port's `device`
+_OVERRIDE_KEYS = {"num_envs", "seed", "checkpoint", "experiment_name", "project_name", "headless",
+                  "base_dir", "multichip", "use_wandb", "save_motion", "log_task_name",
+                  "auto_load_latest", "total_iterations", "watchdog_timeout_s",
+                  "watchdog_boot_timeout_s", "artifact_dir", "device"}
+
+
+def compose(selections=(), overrides=()) -> Cfg:
+    """The composed config of `selections` (`pbhc_tpu/config/loader.py:168`)
+    with dotted `overrides` applied, from the selection set's snapshot."""
+    sels = tuple(s.lstrip("+") for s in selections)
+    name = COMPOSED.get(sels)
+    if name is None:
+        raise FileNotFoundError(f"no config snapshot for the selections {list(sels)}; the port "
+                                f"has snapshots for {[list(k) for k in COMPOSED]}")
+    return Cfg.wrap(apply_overrides(load_snapshot(name), overrides))
+
+
+def parse_cli(argv):
+    """Split CLI args into (selections, overrides): group=name vs dotted.key=v
+    (`loader.py:189`)."""
+    sels, ovs = [], []
+    for a in argv:
+        a = a.lstrip("+")
+        key = a.split("=", 1)[0]
+        (ovs if "." in key or key in _OVERRIDE_KEYS else sels).append(a)
+    return sels, ovs

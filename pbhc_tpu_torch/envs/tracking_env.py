@@ -7,9 +7,12 @@ synchronises with the host. Randomness comes from one `torch.Generator` on the
 env's device, drawn only where the config turns a random feature on. Its draws
 differ from JAX's threefry, so parity tests turn randomness off.
 
-This slice ports the `solver: lanes` branch. The soft-dynamic-correction hook,
-heightfield terrain, the OU observation-noise process, teleop and the
-env-first solvers raise `NotImplementedError` naming their ROADMAP item.
+The two batched physics branches are ported: `solver: lanes` (the env-last
+engine) and `solver: pallas` with N % 128 == 0 (the env-first batched step).
+The soft-dynamic-correction hook, heightfield terrain, the OU
+observation-noise process, teleop and the per-env solvers (`apgd`, `pgs`,
+and `pallas` at other N) raise `NotImplementedError` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -91,8 +94,12 @@ class MotionTrackingEnv:
         ecfg = config.env.config
         sim_cfg = config.simulator.config
 
-        if str(sim_cfg.get("solver", "apgd")) != "lanes":
-            raise _not_ported(f"solver={sim_cfg.get('solver')!r} (env-first engine)", 10)
+        self.solver = str(sim_cfg.get("solver", "apgd"))
+        if self.solver not in ("lanes", "pallas"):
+            raise _not_ported(f"solver={self.solver!r} (the per-env env-first engine)", 10)
+        if self.solver == "pallas" and num_envs % 128:
+            raise _not_ported(f"solver='pallas' with num_envs={num_envs}, not a multiple of 128 "
+                              "(the per-env control_step path)", 10)
         if bool(ecfg.soft_dynamic_correction.get("enable", False)):
             raise _not_ported("soft dynamic correction", "7b")
         ter = config.get("terrain")
@@ -128,7 +135,7 @@ class MotionTrackingEnv:
                           pos_iters=int(sim_cfg.get("pos_iters", 8)),
                           contact_matvec_dtype=str(sim_cfg.get("contact_matvec_dtype", "float32"))),
             device=self.device)
-        self.lanes_engine = LanesEngine(self.engine)
+        self.lanes_engine = self.engine.lanes() if self.solver == "lanes" else None
         self.nd, self.nb = self.engine.nd, self.engine.nb
         self.num_extend = len(extend_cfg)
         dev = self.device
@@ -489,7 +496,7 @@ class MotionTrackingEnv:
 
     # ------------------------------------------------------------------- step
     def _torque_fn(self, state: EnvState, target, kp_eff, kd_eff):
-        """PD torques with RFI/RAO, lanes branch (`tracking_env.py:860-873`)."""
+        """PD torques with RFI/RAO, both batched branches (`tracking_env.py:860-887`)."""
         dr = self.dr
         rfi = bool(dr.get("randomize_torque_rfi", False))
         rao = bool(dr.get("use_rao", False))
@@ -542,8 +549,11 @@ class MotionTrackingEnv:
         target = after_delay * self.action_scales + state.default_dof_pos
         pstau = dr.get("parallel_serial_tau", {})
         if pstau and pstau.get("enable", False):
-            raise _not_ported("parallel_serial_tau torque injection on the lanes branch", "7b")
-        sim, torques = self.lanes_engine.control_step_batched(
+            raise _not_ported("parallel_serial_tau torque injection", "7b")
+        # `solver: lanes` runs the env-last engine (kernel 1), `solver: pallas`
+        # the env-first batched step (kernel 2) (`tracking_env.py:860-889`)
+        physics = self.lanes_engine if self.solver == "lanes" else self.engine
+        sim, torques = physics.control_step_batched(
             self.sim_params, sim, self._torque_fn(state, target, kp_eff, kd_eff), self.decimation,
             paramsT=self.paramsT)
         episode_length = state.episode_length + 1

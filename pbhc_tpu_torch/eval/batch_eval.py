@@ -18,7 +18,7 @@ import time
 
 import torch
 
-from pbhc_tpu_torch.agents.convert import actor_from_flax
+from pbhc_tpu_torch.agents.convert import from_flax
 from pbhc_tpu_torch.agents.networks import actor_from_config
 from pbhc_tpu_torch.config.loader import Cfg, apply_overrides, snapshot_for_checkpoint
 from pbhc_tpu_torch.envs.tracking_env import MotionTrackingEnv
@@ -45,7 +45,7 @@ def load(ckpt_path, num_envs, overrides=(), device="cuda", seed=0):
     payload = load_checkpoint_payload(ckpt_path)
     params = payload.get("actor_params") or payload.get("params")
     actor = actor_from_config(cfg, env.obs_dim("actor_obs"), env.num_actions)
-    actor = actor_from_flax(params, actor).to(env.device).eval()
+    actor = from_flax(params, actor).to(env.device).eval()
     return env, actor, cfg
 
 

@@ -4,8 +4,8 @@ Builds the side-kick env and actor as `batch_eval.episode_ratio` does, steps
 the rollout `warmup` times, then traces `steps` control steps with
 `torch.profiler` and prints one JSON line: host wall time per control step
 (synchronised), device-busy time per step (sum of the CUDA kernels' times on
-the one stream), the busy share, CUDA kernels launched per step, the
-`apgd_lanes` kernel's device time per step, and the top ops by device time.
+the one stream), the busy share, CUDA kernels launched per step, the contact
+kernels' device time per step, and the top ops by device time.
 
     python -m pbhc_tpu_torch.eval.profile_rollout [num_envs=4096] [steps=5] [warmup=3]
 
@@ -50,24 +50,31 @@ def profile_rollout(num_envs=4096, steps=5, warmup=3):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(steps)
         torch.cuda.synchronize()
+    return {"num_envs": num_envs, "steps": steps, **device_summary(prof, steps, wall_ms, "step"),
+            "device": torch.cuda.get_device_name(dev)}
+
+
+def device_summary(prof, n, wall_ms, unit):
+    """Per `unit` (a step or an iteration, `n` of them traced) from a
+    `torch.profiler` trace: the host wall ms (measured outside the trace), the
+    device-busy ms (the CUDA kernels' times on the one stream), the busy share,
+    CUDA kernels launched, each contact kernel's device ms, and the top aten
+    ops by device time."""
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time for e in kernels)
-    apgd_us = sum(e.device_time for e in kernels if "apgd_lanes" in e.name)
+    busy_ms = sum(e.device_time for e in kernels) / 1e3 / n
     by_op = defaultdict(float)
     for e in prof.key_averages():
         if e.key.startswith("aten::") and e.self_device_time_total > 0:
             by_op[e.key] += e.self_device_time_total
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
-    return {
-        "num_envs": num_envs, "steps": steps,
-        "wall_ms_per_step": wall_ms,
-        "device_busy_ms_per_step": busy_us / 1e3 / steps if kernels else None,
-        "device_busy_share": (busy_us / 1e3 / steps) / wall_ms if kernels else None,
-        "cuda_kernels_per_step": len(kernels) / steps,
-        "apgd_lanes_ms_per_step": apgd_us / 1e3 / steps if kernels else None,
-        "top_ops_device_ms_per_step": {k: v / 1e3 / steps for k, v in top},
-        "device": torch.cuda.get_device_name(dev),
-    }
+    out = {f"wall_ms_per_{unit}": wall_ms,
+           f"device_busy_ms_per_{unit}": busy_ms if kernels else None,
+           "device_busy_share": busy_ms / wall_ms if kernels else None,
+           f"cuda_kernels_per_{unit}": len(kernels) / n}
+    for name in ("apgd_lanes", "apgd_envfirst"):
+        out[f"{name}_ms_per_{unit}"] = sum(e.device_time for e in kernels if name in e.name) / 1e3 / n
+    out[f"top_ops_device_ms_per_{unit}"] = {k: v / 1e3 / n for k, v in top}
+    return out
 
 
 def main(argv=None):

@@ -1,13 +1,21 @@
-"""Engine types and static tables (counterpart of `pbhc_tpu/sim/engine.py`).
+"""Engine types, static tables and the env-first batched step (counterpart
+of `pbhc_tpu/sim/engine.py`).
 
-This slice ports what `LanesEngine` reads from an `Engine`: `SimParams`,
-`SimState`, `EngineOptions` (`engine.py:71-148`), `active_set_indices`
-(`:151`) and the static per-robot tables plus `default_params`,
-`default_state` and `derived_state` (`:176-296`). The env-first solve paths
-(`substep`, `control_step`, `substep_batched`, heightfield ground) are ROADMAP
-queue 1 item 10 and raise here.
+`SimParams`, `SimState`, `EngineOptions` (`engine.py:71-148`),
+`active_set_indices` (`:151`), the static per-robot tables with
+`default_params`, `default_state` and `derived_state` (`:176-296`), and the
+env-first batched step of the `solver: pallas` path: `_pre_contact`,
+`substep_batched`, `_integrate`, `contact_forces_from_impulses` and
+`control_step_batched` (`:657-889`). The per-env solve paths (`substep` and
+`control_step` with the apgd/pgs `_solve_contacts`) and heightfield ground are
+ROADMAP queue 1 item 10 and are not here.
 
-Tensors carry a leading env axis where the JAX code vmaps over envs.
+Tensors carry a leading env axis where the JAX code vmaps over envs. The
+dynamics before the contact solve (FK, CRBA, RNEA, the SPD inverse, contact
+Jacobians and pair rows) are the lanes engine's (`sim/engine_lanes.py`), which
+computes the same quantities with the env axis last; `_pre_contact`
+transposes them. From the Delassus matrix on, the step is env-first, as
+`Engine.substep_batched` is, and the contact solve is kernel 2.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import torch
 from pbhc_tpu_torch.maths import rotations as rot
 from pbhc_tpu_torch.model import kinematics as kin
 from pbhc_tpu_torch.model.mjcf import RobotModel
+from pbhc_tpu_torch.sim.contact_kernel import apgd_envfirst
 
 GRAVITY = 9.81
 
@@ -113,7 +122,8 @@ def active_set_indices(opt: EngineOptions, K: int, P: int, phi: torch.Tensor):
 
 
 class Engine:
-    """Static per-robot tables shared with `LanesEngine` (`engine.py:173`)."""
+    """Static per-robot tables shared with `LanesEngine`, and the env-first
+    batched step (`engine.py:173`)."""
 
     def __init__(self, model: RobotModel, options: EngineOptions = EngineOptions(),
                  device="cuda"):
@@ -164,6 +174,16 @@ class Engine:
         joint_slot = np.full(nb, nd, dtype=np.int64)
         joint_slot[np.asarray(model.dof_body)] = np.arange(nd)
         self.joint_slot = joint_slot
+        # body of each impulse row of `contact_forces_from_impulses`: ground
+        # rows, then each pair row on sphere i and (negated) on sphere j
+        cb = self.contact_body
+        self._force_body = torch.as_tensor(
+            np.concatenate([cb, cb[self.pair_i], cb[self.pair_j]]), device=self.device)
+        # the env-first contact solve: kernel 2's wrapper (launches the CUDA
+        # kernel for CUDA tensors). `chip_smoke.py` swaps in the plain version
+        # to hold a whole control step of the kernel against it.
+        self.contact_solve = apgd_envfirst
+        self._lanes = None
 
     def default_params(self) -> SimParams:
         m, t = self.model, lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=self.device)
@@ -194,3 +214,118 @@ class Engine:
             state, body_pos=p_w, body_quat=rot.matrix_to_quat(R_w), body_lin_vel=v,
             body_ang_vel=w,
             contact_forces=state.contact_forces if contact_forces is None else contact_forces)
+
+    # ------------------------------------------------------ env-first step
+    def lanes(self):
+        """The env-last engine over these tables, built at first use."""
+        if self._lanes is None:
+            from pbhc_tpu_torch.sim.engine_lanes import LanesEngine
+
+            self._lanes = LanesEngine(self)
+        return self._lanes
+
+    def _pre_contact(self, params: SimParams, states: SimState, taus, paramsT=None):
+        """`vmap(Engine._pre_contact)` (`engine.py:657-698`): dynamics up to the
+        contact solve. Returns u_plus [N,nv], M_inv [N,nv,nv], J [N,KT,3,nv],
+        phi [N,KT] and the pair-row contact frames C [N,P,3,3]. Pass `paramsT`
+        (`LanesEngine.params_to_lanes(params)`) to skip the re-layout."""
+        lanes = self.lanes()
+        if paramsT is None:
+            paramsT = lanes.params_to_lanes(params)
+        u_plus, M_inv, Jf, phi, C = lanes._pre_contact(paramsT, lanes._to_lanes(states), taus.T)
+        N = taus.shape[0]
+        J = Jf.permute(2, 0, 1).reshape(N, self.KT, 3, self.nv)
+        C = (torch.zeros((N, 0, 3, 3), device=self.device) if C is None
+             else C.permute(3, 2, 0, 1))
+        return u_plus.T, M_inv.permute(2, 0, 1), J, phi.T, C
+
+    def _integrate(self, states: SimState, u_new, dpos):
+        """Semi-implicit Euler + caps + hard joint limits (`engine.py:774`), on
+        the lanes engine's formulas."""
+        lanes = self.lanes()
+        out = lanes._integrate(lanes._to_lanes(states), u_new.T, dpos.T)
+        return dataclasses.replace(
+            states, root_pos=out["rp"].T, root_quat=out["rq"].T, root_lin_vel=out["rv"].T,
+            root_ang_vel=out["rw"].T, dof_pos=out["q"].T, dof_vel=out["qd"].T)
+
+    def substep_batched(self, params: SimParams, states: SimState, taus, paramsT=None):
+        """One physics step over the env batch with kernel 2 as the contact
+        solve (`engine.py:700-772`). It starts the solve from zero on every
+        substep (no warm start), as the JAX path does. Returns (states,
+        impulses [N,KT,3] world frame)."""
+        opt = self.opt
+        N, nv, K = taus.shape[0], self.nv, self.K
+        u_plus, M_inv, J, phi, C = self._pre_contact(params, states, taus, paramsT)
+        idx = active_set_indices(opt, K, self.P, phi)                 # [N,R] | None
+        if idx is not None:
+            J = torch.gather(J, 1, idx[:, :, None, None].expand(-1, -1, 3, nv))
+            phi = torch.gather(phi, 1, idx)
+        R = J.shape[1]
+        Jf = J.reshape(N, R * 3, nv)
+        JfT = Jf.transpose(1, 2)
+        # the Delassus matrix is a batched product outside the kernel, as in JAX
+        A = (Jf @ M_inv @ JfT).contiguous()                            # [N,3R,3R]
+        active = (phi < opt.contact_margin).to(torch.float32)         # [N,R]
+        v0 = (Jf @ u_plus[..., None]).reshape(N, R, 3)
+        rest = params.restitution
+        rest = rest[:, None] if rest.ndim == 1 else rest
+        b = v0.clone()
+        b[..., 2] += rest * torch.clamp(v0[..., 2], max=0.0)
+        b = b.reshape(N, R * 3)
+
+        lam = self.contact_solve(A, b, params.friction, active, opt.solver_iters)   # [N,R,3]
+        lamf = lam.reshape(N, R * 3)
+        # energy safeguard: rescale so that f(t lam) <= 0 (`engine.py:722-729`)
+        lAl = torch.sum(lamf * (A @ lamf[..., None])[..., 0], dim=-1)
+        t = torch.clamp(-torch.sum(b * lamf, dim=-1) / torch.clamp(lAl, min=1e-12), 0.0, 1.0)
+        t = torch.where(lAl > 1e-12, t, 1.0)
+        lam = lam * t[:, None, None]
+        lamf = lamf * t[:, None]
+        u_new = u_plus + (M_inv @ (JfT @ lamf[..., None]))[..., 0]
+
+        # split-impulse position pass (`engine.py:734-752`)
+        b_err = -opt.baumgarte / opt.dt * torch.clamp(phi + opt.penetration_slop, max=0.0)
+        b_err = torch.clamp(b_err, max=opt.max_depenetration_velocity)   # [N,R]
+        act3 = torch.repeat_interleave(active, 3, dim=1)
+        Lp = torch.amax(act3 * torch.sum(torch.abs(A) * act3[:, None, :], dim=2), dim=1)
+        inv_Lp = (1.0 / torch.clamp(Lp, min=1e-6))[:, None]
+        cp = torch.zeros((N, R, 3), device=self.device)
+        cp[..., 2] = b_err * active
+        cp = cp.reshape(N, R * 3)
+        lam_p = torch.zeros_like(cp)
+        for _ in range(opt.pos_iters):
+            g = (A @ lam_p[..., None])[..., 0] - cp
+            x3 = (lam_p - inv_Lp * g).reshape(N, R, 3)
+            nxt = torch.zeros_like(x3)
+            nxt[..., 2] = torch.clamp(x3[..., 2], min=0.0) * active
+            lam_p = nxt.reshape(N, R * 3)
+        dpos = opt.dt * (M_inv @ (JfT @ lam_p[..., None]))[..., 0]
+        states = self._integrate(states, u_new, dpos)
+
+        if idx is not None:
+            lam = torch.zeros((N, self.KT, 3), device=self.device).scatter_(
+                1, idx[:, :, None].expand(-1, -1, 3), lam)
+        if self.P:   # pair rows: contact frame -> world
+            lam = torch.cat([lam[:, :K], torch.einsum("npab,npa->npb", C, lam[:, K:])], dim=1)
+        return states, lam
+
+    def contact_forces_from_impulses(self, lam, decimation: int = 1):
+        """Impulses [N,KT,3] summed over `decimation` substeps -> mean per-body
+        world forces [N,B,3] (`engine.py:824-831`, `:880-885`)."""
+        f = lam / (self.opt.dt * decimation)
+        rows = torch.cat([f[:, :self.K], f[:, self.K:], -f[:, self.K:]], dim=1)
+        cf = torch.zeros((lam.shape[0], self.nb, 3), device=lam.device)
+        return cf.index_add_(1, self._force_body, rows)
+
+    def control_step_batched(self, params: SimParams, states: SimState, torque_fn,
+                             decimation: int, paramsT=None):
+        """`decimation` x (torques -> `substep_batched`), then the derived caches
+        and the mean contact forces (`engine.py:863-889`). torque_fn(states)
+        -> [N,nd]. Returns (states, the last substep's torques)."""
+        lam_acc, tau = None, None
+        for _ in range(decimation):
+            tau = torque_fn(states)
+            states, lam = self.substep_batched(params, states, tau, paramsT)
+            lam_acc = lam if lam_acc is None else lam_acc + lam
+        cf = self.contact_forces_from_impulses(lam_acc, decimation)
+        return self.derived_state(params, states, contact_forces=cf), tau

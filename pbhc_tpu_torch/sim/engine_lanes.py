@@ -362,11 +362,13 @@ class LanesEngine:
         return torch.zeros(xy.shape[1:], device=xy.device)
 
     # ------------------------------------------------------------------ substep
-    def _substep(self, paramsT, stateT, tauT, lam_prev=None):
-        """One physics step, env-last (`engine_lanes.py:488-641`).
-        Returns (stateT, lam [KT,3,N] world-frame impulses)."""
+    def _pre_contact(self, paramsT, stateT, tauT):
+        """Dynamics up to the contact solve, env-last (`engine_lanes.py:488-560`).
+        Returns u_plus [nv,N], M_inv [nv,nv,N], Jf [KT*3,nv,N] (rows k-major,
+        ground rows masked by ancestry), phi [KT,N] and the pair-row contact
+        frames C [3,3,P,N] (None without pairs)."""
         opt = self.opt
-        nv, K, KT = self.nv, self.K, self.KT
+        nv, K = self.nv, self.K
         N = tauT.shape[-1]
         dev = self.device
 
@@ -401,6 +403,16 @@ class LanesEngine:
             Jp, phi_p, C = self._pair_rows(Jf.reshape(K, 3, nv, N), x)
             Jf = torch.cat([Jf, Jp], dim=0)
             phi = torch.cat([phi, phi_p], dim=0)
+        return u_plus, M_inv, Jf, phi, C
+
+    def _substep(self, paramsT, stateT, tauT, lam_prev=None):
+        """One physics step, env-last (`engine_lanes.py:488-641`).
+        Returns (stateT, lam [KT,3,N] world-frame impulses)."""
+        opt = self.opt
+        nv, K, KT = self.nv, self.K, self.KT
+        N = tauT.shape[-1]
+        dev = self.device
+        u_plus, M_inv, Jf, phi, C = self._pre_contact(paramsT, stateT, tauT)
 
         if lam_prev is None:
             lam_cf = torch.zeros((KT, 3, N), device=dev)
@@ -536,12 +548,6 @@ class LanesEngine:
             tau = torque_fn(view(stT))
             stT, lam = self._substep(paramsT, stT, tau.T, lam if self.opt.warm_start else None)
             lam_acc = lam_acc + lam
-        f = lam_acc.permute(2, 0, 1) / (self.opt.dt * decimation)     # [N,KT,3]
-        cf = torch.zeros((N, self.nb, 3), device=self.device)
-        cf.index_add_(1, torch.as_tensor(self._contact_body, device=self.device), f[:, :self.K])
-        if self.P:
-            cb = self._contact_body
-            cf.index_add_(1, torch.as_tensor(cb[self._pair_i], device=self.device), f[:, self.K:])
-            cf.index_add_(1, torch.as_tensor(cb[self._pair_j], device=self.device), -f[:, self.K:])
+        cf = self.e.contact_forces_from_impulses(lam_acc.permute(2, 0, 1), decimation)
         out = self.derived_state_lanes(stT, view(stT), contact_forces=cf)
         return out, tau

@@ -14,7 +14,7 @@ import torch
 torch.set_num_threads(2)
 
 from pbhc_tpu.agents.networks import GaussianActor as FlaxActor  # noqa: E402
-from pbhc_tpu_torch.agents.convert import actor_from_flax  # noqa: E402
+from pbhc_tpu_torch.agents.convert import from_flax  # noqa: E402
 from pbhc_tpu_torch.agents.networks import GaussianActor, actor_from_config  # noqa: E402
 from pbhc_tpu_torch.config.loader import load_snapshot  # noqa: E402
 from pbhc_tpu_torch.eval import batch_eval  # noqa: E402
@@ -37,7 +37,7 @@ def test_actor_forward_matches_flax():
     params = load_checkpoint_payload(CKPT)["actor_params"]
     hidden = tuple(cfg.algo.config.module_dict.actor.layer_config.hidden_dims)
     flax_actor = FlaxActor(hidden, 23, float(cfg.algo.config.init_noise_std), "ELU")
-    actor = actor_from_flax(params, actor_from_config(cfg, 380, 23))
+    actor = from_flax(params, actor_from_config(cfg, 380, 23))
     obs = np.random.default_rng(0).normal(size=(64, 380)).astype(np.float32)
     mean, std = flax_actor.apply(params, jnp.asarray(obs))
     with torch.no_grad():
@@ -49,9 +49,9 @@ def test_actor_forward_matches_flax():
 def test_convert_rejects_wrong_architecture():
     params = load_checkpoint_payload(CKPT)["actor_params"]
     with pytest.raises(ValueError, match="Dense"):
-        actor_from_flax(params, GaussianActor(380, (512, 256), 23))
+        from_flax(params, GaussianActor(380, (512, 256), 23))
     with pytest.raises(ValueError, match="kernel"):
-        actor_from_flax(params, GaussianActor(381, (512, 256, 128), 23))
+        from_flax(params, GaussianActor(381, (512, 256, 128), 23))
 
 
 def test_cli_rejects_unported_modes():

@@ -22,7 +22,9 @@ from pbhc_tpu_torch.model.mjcf import load_mjcf, strip_xml_comments  # noqa: E40
 
 REPO = Path(__file__).resolve().parents[1]
 G1 = REPO / "assets" / "robots" / "g1"
-SNAPSHOTS = sorted(tl.SNAPSHOT_DIR.glob("*.json"))
+# run snapshots; the composed ones (`tl.COMPOSED`) are held against the JAX
+# `compose` in tests/test_torch_train.py
+SNAPSHOTS = sorted(p for p in tl.SNAPSHOT_DIR.glob("*.json") if p.stem not in tl.COMPOSED.values())
 
 
 def assert_models_equal(a, b):

@@ -1,4 +1,4 @@
-"""Kernel 1's CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA contact kernels against their plain PyTorch versions, on the card.
 
 This file imports no JAX, so it runs on the machine with the card, where the
 repo's conftest (which imports JAX) must be skipped:
@@ -56,3 +56,35 @@ def test_kernel_refuses_too_many_rows(cuda_device):
     R = ck._library().apgd_lanes_max_rows() + 1
     with pytest.raises(ValueError, match="at most"):
         ck.apgd_lanes(*_problem(R, 32, 0, cuda_device), iters=4)
+
+
+def _envfirst_problem(R, N, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = 3 * R
+    J = torch.randn((N, n, 40), generator=g, device=device) * 0.3
+    A = (J @ J.transpose(1, 2) + 1e-2 * torch.eye(n, device=device)).contiguous()
+    b = torch.randn((N, n), generator=g, device=device)
+    mu = 0.2 + torch.rand((N,), generator=g, device=device)
+    active = (torch.rand((N, R), generator=g, device=device) > 0.3).float()
+    return A, b, mu, active
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N,iters", [(12, 4096, 16), (38, 4096, 16), (12, 128, 32), (1, 50, 16),
+                                       (11, 1000, 16), (42, 64, 8)])
+def test_envfirst_kernel_matches_plain(cuda_device, R, N, iters):
+    args = _envfirst_problem(R, N, R + N, cuda_device)
+    before = ck.apgd_envfirst.launches
+    out = ck.apgd_envfirst(*args, iters=iters)
+    ref = ck.apgd_envfirst_plain(*args, iters=iters)
+    torch.cuda.synchronize()
+    assert ck.apgd_envfirst.launches == before + 1
+    assert out.shape == (N, R, 3) and torch.isfinite(out).all()
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_envfirst_kernel_refuses_too_many_rows(cuda_device):
+    R = ck._envfirst_library().apgd_envfirst_max_rows() + 1
+    with pytest.raises(ValueError, match="at most"):
+        ck.apgd_envfirst(*_envfirst_problem(R, 32, 0, cuda_device), iters=4)

@@ -1,10 +1,11 @@
 """The port runs where only torch, numpy, scipy and the standard library are.
 
-The machine with the card has no JAX, PyYAML, joblib, lxml or MuJoCo. A
-subprocess that blocks those modules (and `pbhc_tpu`) imports every module of
-`pbhc_tpu_torch` and `chip_smoke`, builds the side-kick env and actor on the
-CPU at 128 envs from the config snapshot and the checkpoint, and drives a few
-control steps of the serving loop.
+The machine with the card has no JAX, PyYAML, joblib, lxml, MuJoCo or
+TensorBoard. A subprocess that blocks those modules (and `pbhc_tpu`) imports
+every module of `pbhc_tpu_torch` and `chip_smoke`, builds the side-kick env
+and actor on the CPU at 128 envs from the config snapshot and the checkpoint,
+drives a few control steps of the serving loop, and runs the training CLI
+(`python -m pbhc_tpu_torch.train`) for one iteration at 128 envs.
 """
 import ast
 import subprocess
@@ -13,7 +14,8 @@ import textwrap
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pbhc_tpu", "yaml", "joblib", "lxml", "mujoco")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pbhc_tpu", "yaml", "joblib", "lxml", "mujoco",
+           "tensorboard")
 
 SCRIPT = textwrap.dedent("""
     import sys
@@ -41,18 +43,25 @@ SCRIPT = textwrap.dedent("""
     assert obs["actor_obs"].shape == (128, 380), obs["actor_obs"].shape
     assert int(state.episode_length.min()) == 3 and int(nonfinite) == 0
     assert torch.isfinite(state.sim.dof_pos).all() and torch.isfinite(state.sim.root_pos).all()
+    import runpy
+    sys.argv = ["pbhc_tpu_torch.train", "exp=motion_tracking", "robot=g1_23dof", "obs=motion_tracking",
+                "rewards=motion_tracking", "domain_rand=main", "simulator=tpu", "num_envs=128",
+                "robot.motion.motion_file=assets/motions/Horse-stance_punch.pkl",
+                "algo.config.num_learning_iterations=1", "device=cpu", "base_dir={base_dir}"]
+    runpy.run_module("pbhc_tpu_torch.train", run_name="__main__")
     leaked = [n for n, m in sys.modules.items() if n.split(".")[0] in BLOCKED and m is not None]
     assert not leaked, leaked
     print("modules", len(names), "ISOLATION OK")
 """)
 
 
-def test_port_runs_without_jax_yaml_joblib_lxml():
-    script = SCRIPT.format(blocked=BLOCKED, repo=str(REPO))
+def test_port_runs_without_jax_yaml_joblib_lxml(tmp_path):
+    script = SCRIPT.format(blocked=BLOCKED, repo=str(REPO), base_dir=str(tmp_path))
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
                          timeout=600)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "ISOLATION OK" in out.stdout
+    assert "[it 1/1]" in out.stdout and list(tmp_path.glob("PBHC_TPU/*/ckpt/model_1.pkl"))
 
 
 def _imported_roots(path):
