@@ -14,8 +14,9 @@ holds every CUDA kernel they launch against its plain PyTorch version:
 Phases, each announced when it starts and when it ends:
 
   build            - compile both kernels from `pbhc_tpu_torch/csrc/` (nvcc, sm_90a, in parallel)
-  kernel           - each kernel vs its plain version at the paths' shapes, with timings
+  kernel           - each kernel vs its plain version at R = 12 and 38 rows, with timings
   substep          - one lanes control step at 4096 envs, kernel 1 vs plain solve
+  substep-allrows  - the same with `contact_cap: 0` (every row, R = 38)
   substep-envfirst - one env-first control step at 4096 envs, kernel 2 vs plain solve
   serving          - the episode_ratio rollout; kernel launches counted from 0
   train-lanes      - the training CLI for 3 iterations, solver lanes; launches counted from 0
@@ -36,7 +37,6 @@ import glob
 import json
 import os
 import shutil
-import subprocess
 import sys
 import time
 
@@ -77,9 +77,6 @@ RATIO_BAND = 0.02
 #   tests/test_torch_ppo.py holds the port to against optax.
 UPDATE_ATOL = 1e-5
 
-H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
-H100_F32_FLOP_PER_S = 67e12     # f32 outside the tensor cores, H100 SXM data sheet
-
 
 def log(msg):
     print(msg, flush=True)
@@ -91,63 +88,6 @@ def phase(name):
     log(f"[phase {name}] start")
     yield
     log(f"[phase {name}] ok in {time.perf_counter() - t0:.1f} s")
-
-
-def card_line(torch):
-    smi = shutil.which("nvidia-smi")
-    if smi:
-        out = subprocess.run([smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                             capture_output=True, text=True, timeout=60)
-        if out.returncode == 0 and out.stdout.strip():
-            return out.stdout.strip().splitlines()[0]
-    return f"{torch.cuda.get_device_name(0)}, power limit not read (no nvidia-smi)"
-
-
-def cuda_ms(torch, fn, reps):
-    """Mean device time of `fn()` over `reps` runs, after one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def apgd_bound_ms(R, N, iters):
-    """Least time for the solve: each input read once and the output written
-    once over the memory rate, or its f32 operations over the f32 rate."""
-    n = 3 * R
-    nbytes = 4 * N * (n * n + n + 1 + R + n + n)        # A, b, mu, active, x0 -> out
-    # Lipschitz bound (abs, mul, add per entry) + per iteration the matvec
-    # (mul+add per entry) and ~12 ops per row for momentum and projection
-    ops = N * (3 * n * n + iters * (2 * n * n + 12 * n))
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def envfirst_bound_ms(R, N, iters):
-    """Kernel 2: A, b, mu and active read once, the impulses written once;
-    the Lipschitz bound and per iteration the matvec and ~12 ops per row."""
-    n = 3 * R
-    nbytes = 4 * N * (n * n + 2 * n + 1 + R)
-    ops = N * (3 * n * n + iters * (2 * n * n + 12 * n))
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def envfirst_problem(torch, R, N, dev, seed):
-    """Random SPD Delassus matrices with ~30% inactive rows, env-first."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    n = 3 * R
-    J = torch.randn((N, n, 40), generator=g, device=dev) * 0.3
-    A = (J @ J.transpose(1, 2) + 1e-2 * torch.eye(n, device=dev)).contiguous()
-    b = torch.randn((N, n), generator=g, device=dev)
-    mu = 0.2 + torch.rand((N,), generator=g, device=dev)
-    active = (torch.rand((N, R), generator=g, device=dev) > 0.3).float()
-    return A, b, mu, active
 
 
 def compare_steps(torch, outs, tol):
@@ -214,14 +154,14 @@ def main():
     from pbhc_tpu_torch.agents.networks import actor_from_config, critic_from_config
     from pbhc_tpu_torch.config.loader import compose
     from pbhc_tpu_torch.envs.tracking_env import MotionTrackingEnv
-    from pbhc_tpu_torch.eval import batch_eval
+    from pbhc_tpu_torch.eval import batch_eval, kernel_bench
     from pbhc_tpu_torch.sim import contact_kernel
     from pbhc_tpu_torch.utils import nvcc
     from pbhc_tpu_torch.utils.checkpoint import load_checkpoint_payload
 
     batch_eval.set_precision()
     dev = torch.device("cuda:0")
-    card = card_line(torch)
+    card = kernel_bench.card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     k1, k2 = contact_kernel.apgd_lanes, contact_kernel.apgd_envfirst
     ok = True
@@ -254,54 +194,39 @@ def main():
                     log(f"  {name}: {line.strip()}")
 
     with phase("kernel"):
-        g = torch.Generator(device=dev).manual_seed(0)
-        n, N = 3 * ROWS, NUM_ENVS
-        J = torch.randn((n, 40, N), generator=g, device=dev) * 0.3
-        A = (torch.einsum("ivn,jvn->ijn", J, J) + 1e-2 * torch.eye(n, device=dev)[:, :, None]).contiguous()
-        b = torch.randn((n, N), generator=g, device=dev)
-        mu = 0.2 + torch.rand((N,), generator=g, device=dev)
-        active = (torch.rand((ROWS, N), generator=g, device=dev) > 0.3).float()
-        x0 = torch.rand((n, N), generator=g, device=dev) * 0.5
-        out = k1(A, b, mu, active, x0, ITERS)
-        ref = contact_kernel.apgd_lanes_plain(A, b, mu, active, x0, ITERS)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        finite = bool(torch.isfinite(out).all())
-        bound_ms, bound_by = apgd_bound_ms(ROWS, N, ITERS)
-        stats["apgd_lanes"] = dict(
-            max_abs_err=err, ms=cuda_ms(torch, lambda: k1(A, b, mu, active, x0, ITERS), 50),
-            plain_ms=cuda_ms(torch, lambda: contact_kernel.apgd_lanes_plain(A, b, mu, active, x0, ITERS), 10),
-            bound_ms=bound_ms, bound_by=bound_by)
-        st = stats["apgd_lanes"]
-        log(f"apgd_lanes R={ROWS} N={N} iters={ITERS}: max_abs_err {err:.3e} (tol {KERNEL_ATOL:g}), "
-            f"|ref| max {float(ref.abs().max()):.3f}, kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
-            f"bound {bound_ms * 1e3:.2f} us ({bound_by}) on {card}")
-        if not (finite and err <= KERNEL_ATOL):
-            log("FAIL: apgd_lanes disagrees with its plain version")
-            ok = False
-        del J, A, b, mu, active, x0, out, ref
-        for R in (ROWS, ALL_ROWS):
-            A, b, mu, active = envfirst_problem(torch, R, N, dev, R)
-            out = k2(A, b, mu, active, ITERS)
-            ref = contact_kernel.apgd_envfirst_plain(A, b, mu, active, ITERS)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            bound_ms, bound_by = envfirst_bound_ms(R, N, ITERS)
-            st = dict(max_abs_err=err, ms=cuda_ms(torch, lambda: k2(A, b, mu, active, ITERS), 50),
-                      plain_ms=cuda_ms(torch, lambda: contact_kernel.apgd_envfirst_plain(A, b, mu, active, ITERS), 10),
-                      bound_ms=bound_ms, bound_by=bound_by)
-            # the training path's shape (R = 12) is the kernel's entry; every row (R = 38) rides along
-            stats["apgd_envfirst"].update(st if R == ROWS else {f"r{R}": st})
-            log(f"apgd_envfirst R={R} N={N} iters={ITERS}: max_abs_err {err:.3e} (tol {KERNEL_ATOL:g}), "
-                f"|ref| max {float(ref.abs().max()):.3f}, kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
-                f"bound {bound_ms * 1e3:.2f} us ({bound_by}) on {card}")
-            if not (bool(torch.isfinite(out).all()) and err <= KERNEL_ATOL):
-                log(f"FAIL: apgd_envfirst disagrees with its plain version at R={R}")
-                ok = False
-            del A, b, mu, active, out, ref
+        N = NUM_ENVS
+        for name, (kernel, _, plain, problem, bound, _) in kernel_bench.KERNELS.items():
+            for R in (ROWS, ALL_ROWS):
+                args = problem(R, N, dev, R)
+                out = kernel(*args, ITERS)
+                ref = plain(*args, ITERS)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                bound_ms, bound_by = bound(R, N, ITERS)
+                # ms: per launch over 50 launches back to back, CUDA events (the
+                # host's launch cost shows there); ms_device: the kernel's own
+                # device time, from a profiler trace of 50 launches
+                st = dict(max_abs_err=err, ms=kernel_bench.cuda_ms(lambda: kernel(*args, ITERS), 50),
+                          ms_device=kernel_bench.device_ms(lambda: kernel(*args, ITERS), 50, name),
+                          plain_ms=kernel_bench.cuda_ms(lambda: plain(*args, ITERS), 10),
+                          bound_ms=bound_ms, bound_by=bound_by, tile=contact_kernel.tile(name, R))
+                # the paths' shape (R = 12) is the kernel's entry; every row (R = 38) rides along
+                stats[name].update(st if R == ROWS else {f"r{R}": st})
+                log(f"{name} R={R} N={N} iters={ITERS}: max_abs_err {err:.3e} (tol {KERNEL_ATOL:g}), "
+                    f"|ref| max {float(ref.abs().max()):.3f}, kernel {st['ms']:.5f} ms per launch back to back, "
+                    f"{st['ms_device']:.5f} ms on the device, plain {st['plain_ms']:.5f} ms, "
+                    f"bound {bound_ms * 1e3:.2f} us ({bound_by}) on {card}")
+                if not (bool(torch.isfinite(out).all()) and err <= KERNEL_ATOL):
+                    log(f"FAIL: {name} disagrees with its plain version at R={R}")
+                    ok = False
+                del args, out, ref
 
-    with phase("substep"):
-        env, actor, _ = batch_eval.load(CKPT, NUM_ENVS, device=dev)
+    def lanes_step_check(overrides, rows):
+        """One lanes control step of the side-kick run at 4096 envs (after
+        SETTLE_STEPS under the policy), kernel 1 vs its plain version; every
+        solve must have `rows` rows."""
+        nonlocal ok
+        env, actor, _ = batch_eval.load(CKPT, NUM_ENVS, overrides, device=dev)
         state, obs = batch_eval.start_episodes(env)
         with torch.no_grad():
             # settle onto the soles first: at clip time 0 no contact row is active
@@ -315,9 +240,13 @@ def main():
             return torch.clamp(kp * (target - st.dof_pos) - kd * st.dof_vel, -env.torque_limits, env.torque_limits)
 
         lanes = env.lanes_engine
-        outs = {}
+        outs, seen = {}, []
         for name, solve in (("kernel", k1), ("plain", contact_kernel.apgd_lanes_plain)):
-            lanes.contact_solve = solve
+            def recorded(A, b, mu, active, x0, iters, solve=solve):
+                seen.append(active.shape[0])
+                return solve(A, b, mu, active, x0, iters)
+
+            lanes.contact_solve = recorded
             outs[name], _ = lanes.control_step_batched(env.sim_params, state.sim, pd, env.decimation,
                                                        paramsT=env.paramsT)
         lanes.contact_solve = k1
@@ -325,12 +254,21 @@ def main():
         worst, step_ok = compare_steps(torch, outs, STEP_RTOL)
         ok = ok and step_ok
         in_contact = int((outs["plain"].contact_forces.abs().sum((1, 2)) > 0).sum())
-        log(f"one lanes control step at {NUM_ENVS} envs ({in_contact} with contact impulses), kernel vs "
-            f"plain solve: max relative diff {worst:.3e} (tol {STEP_RTOL:g})")
+        log(f"one lanes control step at {NUM_ENVS} envs, R = {sorted(set(seen))} rows ({in_contact} envs "
+            f"with contact impulses), kernel vs plain solve: max relative diff {worst:.3e} (tol {STEP_RTOL:g})")
         if in_contact < NUM_ENVS // 2:
             log("FAIL: too few envs in contact for the comparison to test the solve")
             ok = False
-        del env, actor, state, obs, outs
+        if set(seen) != {rows}:
+            log(f"FAIL: the step solved with R = {sorted(set(seen))} rows, want {rows}")
+            ok = False
+
+    with phase("substep"):
+        lanes_step_check((), ROWS)
+
+    with phase("substep-allrows"):
+        # contact_cap 0 (EngineOptions' default) solves every row of the model
+        lanes_step_check(("simulator.config.contact_cap=0",), ALL_ROWS)
 
     with phase("substep-envfirst"):
         cfg = compose(TRAIN_SELECTIONS, TRAIN_OVERRIDES + ["simulator.config.solver=pallas"])

@@ -1,7 +1,10 @@
 """Config access for the port (counterpart of `pbhc_tpu/config/loader.py`).
 
 Configs are read from JSON snapshots under `config/snapshots/`, so the port
-needs no YAML parser. There are two kinds:
+needs no YAML parser. A run directory the port's training CLI writes holds
+its own config as `config.json`, which `snapshot_for_checkpoint` reads
+first, and as `config.yaml` (`to_yaml`, an emitter of the port's own), which
+`pbhc_tpu`'s loaders read. The committed snapshots are of two kinds:
 - one per committed run directory (`artifacts/<run>/config.yaml` ->
   `<run>.json`); a test holds each equal to `yaml.safe_load` of its source;
 - one per CLI selection set the port runs (`COMPOSED`): the JAX loader's
@@ -13,6 +16,8 @@ needs no YAML parser. There are two kinds:
 from __future__ import annotations
 
 import json
+import math
+import re
 from pathlib import Path
 
 SNAPSHOT_DIR = Path(__file__).resolve().parent / "snapshots"
@@ -82,8 +87,79 @@ def load_snapshot(name: str) -> Cfg:
 
 
 def snapshot_for_checkpoint(ckpt_path) -> Cfg:
-    """Config of the run that wrote `ckpt_path` (`<run>/ckpt/model_<it>.pkl`)."""
-    return load_snapshot(Path(ckpt_path).resolve().parent.parent.name)
+    """Config of the run that wrote `ckpt_path` (`<run>/ckpt/model_<it>.pkl`):
+    the run directory's `config.json` where it has one (the port's training
+    CLI writes it), else the committed snapshot named after the directory."""
+    run_dir = Path(ckpt_path).resolve().parent.parent
+    own = run_dir / "config.json"
+    if own.is_file():
+        return Cfg.wrap(json.loads(own.read_text()))
+    return load_snapshot(run_dir.name)
+
+
+# YAML 1.1 as PyYAML resolves plain scalars: a string may stay unquoted only if
+# it starts with a letter, `_` or `/`, holds no character YAML gives a meaning,
+# and is none of the words YAML reads as a bool or null
+_PLAIN = re.compile(r"[A-Za-z_/][A-Za-z0-9_./-]*")
+_YAML_WORDS = {"yes", "no", "on", "off", "true", "false", "null", "y", "n"}
+
+
+def _yaml_scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v)
+        if "e" in r and "." not in r.split("e")[0]:
+            r = r.replace("e", ".0e", 1)      # YAML 1.1 floats need a `.`: 1e-05 -> 1.0e-05
+        return r
+    if isinstance(v, str):
+        if _PLAIN.fullmatch(v) and v.lower() not in _YAML_WORDS:
+            return v
+        return json.dumps(v)                  # a double-quoted YAML scalar
+    if isinstance(v, dict) and not v:
+        return "{}"
+    if isinstance(v, (list, tuple)) and not v:
+        return "[]"
+    raise TypeError(f"to_yaml: cannot write {type(v).__name__} {v!r}")
+
+
+def _yaml_lines(obj, indent: int):
+    pad = " " * indent
+    if isinstance(obj, dict) and obj:
+        for k, v in obj.items():
+            if not isinstance(k, str):
+                raise TypeError(f"to_yaml: key {k!r} is not a string")
+            if isinstance(v, (dict, list, tuple)) and v:
+                yield f"{pad}{_yaml_scalar(k)}:"
+                yield from _yaml_lines(v, indent + 2)
+            else:
+                yield f"{pad}{_yaml_scalar(k)}: {_yaml_scalar(v)}"
+    elif isinstance(obj, (list, tuple)) and obj:
+        for v in obj:
+            if isinstance(v, (dict, list, tuple)) and v:
+                first, *rest = _yaml_lines(v, indent + 2)
+                yield f"{pad}- {first.lstrip()}"
+                yield from rest
+            else:
+                yield f"{pad}- {_yaml_scalar(v)}"
+    else:
+        yield pad + _yaml_scalar(obj)
+
+
+def to_yaml(obj) -> str:
+    """Block-style YAML of a config (dicts with string keys, lists, strings,
+    ints, floats, bools, None) that `yaml.safe_load` reads back equal, types
+    included: every float carries a `.` (`1.0e-05`) and every string YAML
+    would resolve to something else is double-quoted."""
+    return "\n".join(_yaml_lines(obj, 0)) + "\n"
 
 
 def apply_overrides(cfg: dict, overrides=()):

@@ -7,19 +7,23 @@ Kernel 1, `apgd_lanes`: the env-last solve of the lanes engine. Replaces
 is carried in f32, the warm start is projected, and only the f32 matvec path
 (`contact_matvec_dtype = float32`) exists.
 
-Bound at the slice's shape (R = 12 rows, N = 4096 envs, 16 iterations) on an
-H100: reading A once is 21.2 MB, 6.3 us at 3.35 TB/s; the 170 MFLOP of f32
-work take 2.5 us at 67 TFLOP/s. The solve is memory bound, about 6.3 us per
-launch; the design note is in `csrc/apgd_lanes.cu`.
-
 Kernel 2, `apgd_envfirst`: the env-first solve of `Engine.substep_batched`.
 Replaces `pallas_contact.py::_apgd_kernel` (:37-74, `pallas_call` at :161 in
 `solve_contacts_pallas`) and follows it: a zero start and the momentum
-coefficients of `_beta_schedule`. Bound and design in `csrc/apgd_envfirst.cu`.
+coefficients of `_beta_schedule`.
+
+Both share one solver body (`csrc/apgd_common.cuh`): a block stages the
+Delassus matrices of a tile of E neighbouring envs in shared memory once and
+runs every iteration from there, P threads per (env, contact). The kernels
+pick E and P from the row count (`apgd::choose_tile`; `tile` reads the
+choice back). Bounds and design notes are in the `.cu` files. Both take
+R <= 42 contact rows (n = 3R <= 128).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
 version (`apgd_lanes_plain`, `apgd_envfirst_plain`) for CPU tensors; there is
 no fallback between the two. `<wrapper>.launches` counts kernel launches.
+`apgd_lanes_at_tile` and `apgd_envfirst_at_tile` launch a kernel at a tile
+of the caller's choice, for tile sweeps; they count nothing.
 """
 from __future__ import annotations
 
@@ -29,11 +33,22 @@ import torch
 
 from pbhc_tpu_torch.utils import nvcc
 
-LIBRARY = nvcc.CudaLibrary("apgd_lanes", ("apgd_lanes.cu",))
-ENVFIRST_LIBRARY = nvcc.CudaLibrary("apgd_envfirst", ("apgd_envfirst.cu",))
+HEADERS = ("apgd_common.cuh",)
+LIBRARY = nvcc.CudaLibrary("apgd_lanes", ("apgd_lanes.cu",), HEADERS)
+ENVFIRST_LIBRARY = nvcc.CudaLibrary("apgd_envfirst", ("apgd_envfirst.cu",), HEADERS)
 LIBRARIES = (LIBRARY, ENVFIRST_LIBRARY)
 _lib = None
 _envfirst_lib = None
+
+
+def tile(kernel: str, R: int) -> tuple:
+    """(E, P), the envs per block and threads per contact, that `kernel`
+    ("apgd_lanes" or "apgd_envfirst") launches with at R rows. Builds the
+    kernel's library if needed."""
+    lib = {"apgd_lanes": _library, "apgd_envfirst": _envfirst_library}[kernel]()
+    E, P = ctypes.c_int(), ctypes.c_int()
+    getattr(lib, f"{kernel}_tile")(R, ctypes.byref(E), ctypes.byref(P))
+    return E.value, P.value
 
 
 def apgd_lanes_plain(A, b, mu, active, x0, iters: int):
@@ -69,11 +84,39 @@ def _library():
     global _lib
     if _lib is None:
         lib = nvcc.load(LIBRARY)
-        lib.apgd_lanes_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.apgd_lanes_launch.restype = ctypes.c_int
-        lib.apgd_lanes_max_rows.restype = ctypes.c_int
+        _declare(lib, "apgd_lanes", 6)
         _lib = lib
     return _lib
+
+
+def _declare(lib, kernel: str, n_ptr: int):
+    """The C signatures of `kernel`'s exports; its launch functions take
+    `n_ptr` tensor pointers."""
+    ptrs, ints = [ctypes.c_void_p] * n_ptr, [ctypes.c_int] * 3
+    getattr(lib, f"{kernel}_launch").argtypes = ptrs + ints + [ctypes.c_void_p]
+    getattr(lib, f"{kernel}_launch_tile").argtypes = ptrs + ints + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    for fn in ("launch", "launch_tile", "max_rows"):
+        getattr(lib, f"{kernel}_{fn}").restype = ctypes.c_int
+    getattr(lib, f"{kernel}_tile").argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    getattr(lib, f"{kernel}_tile").restype = None
+
+
+def _launch(lib, kernel: str, tensors, out, R: int, N: int, iters: int, at_tile):
+    """Launch `kernel` on CUDA tensors at the kernel's tile, or at `at_tile`
+    = (E, P); raise on a tile the kernel does not take or a failed launch."""
+    ptrs = [t.data_ptr() for t in tensors] + [out.data_ptr()]
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        if at_tile is None:
+            err = getattr(lib, f"{kernel}_launch")(*ptrs, R, N, int(iters), stream)
+        else:
+            err = getattr(lib, f"{kernel}_launch_tile")(*ptrs, R, N, int(iters), *at_tile, stream)
+    if err == -1:
+        raise ValueError(f"{kernel}: the kernel does not take R={R}, N={N}, iters={iters}"
+                         + ("" if at_tile is None else f" at tile (E, P) = {tuple(at_tile)}"))
+    if err != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed with CUDA error {err}")
+    return out
 
 
 def _check(kernel: str, want: dict):
@@ -92,28 +135,39 @@ def _check(kernel: str, want: dict):
 def apgd_lanes(A, b, mu, active, x0, iters: int):
     """The contact solve: CUDA kernel for CUDA tensors, plain version for CPU
     tensors. Same arguments as `apgd_lanes_plain`."""
+    _check_lanes(A, b, mu, active, x0)
+    if A.device.type == "cpu":
+        return apgd_lanes_plain(A, b, mu, active, x0, iters)
+    out = _launch_lanes(A, b, mu, active, x0, iters, None)
+    apgd_lanes.launches += 1
+    return out
+
+
+def apgd_lanes_at_tile(A, b, mu, active, x0, iters: int, E: int, P: int):
+    """Kernel 1 with E envs per block and P threads per contact, in place of
+    the tile it picks for R; for tile sweeps. CUDA tensors only; not counted
+    in `apgd_lanes.launches`."""
+    _check_lanes(A, b, mu, active, x0)
+    return _launch_lanes(A, b, mu, active, x0, iters, (E, P))
+
+
+def _check_lanes(A, b, mu, active, x0):
     R, N = active.shape
     n = 3 * R
     _check("apgd_lanes", {"A": (A, (n, n, N)), "b": (b, (n, N)), "mu": (mu, (N,)),
                           "active": (active, (R, N)), "x0": (x0, (n, N))})
-    if A.device.type == "cpu":
-        return apgd_lanes_plain(A, b, mu, active, x0, iters)
+
+
+def _launch_lanes(A, b, mu, active, x0, iters, at_tile):
+    R, N = active.shape
     if A.device.type != "cuda":
         raise ValueError(f"apgd_lanes: no implementation for device {A.device}")
     lib = _library()
     if R > lib.apgd_lanes_max_rows():
         raise ValueError(f"apgd_lanes: R={R} rows, the kernel takes at most "
-                         f"{lib.apgd_lanes_max_rows()} (its block's shared memory)")
-    A, b, mu, active, x0 = (t.contiguous() for t in (A, b, mu, active, x0))
-    out = torch.empty_like(b)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = lib.apgd_lanes_launch(A.data_ptr(), b.data_ptr(), mu.data_ptr(), active.data_ptr(),
-                                    x0.data_ptr(), out.data_ptr(), R, N, int(iters), stream)
-    if err != 0:
-        raise RuntimeError(f"apgd_lanes: kernel launch failed with CUDA error {err}")
-    apgd_lanes.launches += 1
-    return out
+                         f"{lib.apgd_lanes_max_rows()} (n = 3R <= 128)")
+    tensors = [t.contiguous() for t in (A, b, mu, active, x0)]
+    return _launch(lib, "apgd_lanes", tensors, torch.empty_like(tensors[1]), R, N, iters, at_tile)
 
 
 apgd_lanes.launches = 0
@@ -162,9 +216,7 @@ def _envfirst_library():
     global _envfirst_lib
     if _envfirst_lib is None:
         lib = nvcc.load(ENVFIRST_LIBRARY)
-        lib.apgd_envfirst_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.apgd_envfirst_launch.restype = ctypes.c_int
-        lib.apgd_envfirst_max_rows.restype = ctypes.c_int
+        _declare(lib, "apgd_envfirst", 5)
         lib.apgd_envfirst_max_iters.restype = ctypes.c_int
         _envfirst_lib = lib
     return _envfirst_lib
@@ -173,31 +225,43 @@ def _envfirst_library():
 def apgd_envfirst(A, b, mu, active, iters: int):
     """Kernel 2: CUDA kernel for CUDA tensors, plain version for CPU tensors.
     Same arguments as `apgd_envfirst_plain`."""
+    _check_envfirst(A, b, mu, active)
+    if A.device.type == "cpu":
+        return apgd_envfirst_plain(A, b, mu, active, iters)
+    out = _launch_envfirst(A, b, mu, active, iters, None)
+    apgd_envfirst.launches += 1
+    return out
+
+
+def apgd_envfirst_at_tile(A, b, mu, active, iters: int, E: int, P: int):
+    """Kernel 2 with E envs per block and P threads per contact, in place of
+    the tile it picks for R; for tile sweeps. CUDA tensors only; not counted
+    in `apgd_envfirst.launches`."""
+    _check_envfirst(A, b, mu, active)
+    return _launch_envfirst(A, b, mu, active, iters, (E, P))
+
+
+def _check_envfirst(A, b, mu, active):
     N, R = active.shape
     n = 3 * R
     _check("apgd_envfirst", {"A": (A, (N, n, n)), "b": (b, (N, n)), "mu": (mu, (N,)),
                              "active": (active, (N, R))})
-    if A.device.type == "cpu":
-        return apgd_envfirst_plain(A, b, mu, active, iters)
+
+
+def _launch_envfirst(A, b, mu, active, iters, at_tile):
+    N, R = active.shape
     if A.device.type != "cuda":
         raise ValueError(f"apgd_envfirst: no implementation for device {A.device}")
     lib = _envfirst_library()
     if R > lib.apgd_envfirst_max_rows():
         raise ValueError(f"apgd_envfirst: R={R} rows, the kernel takes at most "
-                         f"{lib.apgd_envfirst_max_rows()} (32 lanes x 4 solver rows per env)")
+                         f"{lib.apgd_envfirst_max_rows()} (n = 3R <= 128)")
     if not 0 <= iters <= lib.apgd_envfirst_max_iters():
         raise ValueError(f"apgd_envfirst: iters={iters}, the kernel takes at most "
                          f"{lib.apgd_envfirst_max_iters()}")
-    A, b, mu, active = (t.contiguous() for t in (A, b, mu, active))
+    tensors = [t.contiguous() for t in (A, b, mu, active)]
     out = torch.empty((N, R, 3), dtype=torch.float32, device=A.device)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = lib.apgd_envfirst_launch(A.data_ptr(), b.data_ptr(), mu.data_ptr(), active.data_ptr(),
-                                       out.data_ptr(), R, N, int(iters), stream)
-    if err != 0:
-        raise RuntimeError(f"apgd_envfirst: kernel launch failed with CUDA error {err}")
-    apgd_envfirst.launches += 1
-    return out
+    return _launch(lib, "apgd_envfirst", tensors, out, R, N, iters, at_tile)
 
 
 apgd_envfirst.launches = 0

@@ -8,11 +8,12 @@ Usage (the selections of `bench.py`; the port has a config snapshot for them):
 
 It runs on the first CUDA card unless `device=` names another device. It
 writes a run directory `<base_dir>/<project_name>/<time>-<experiment>-<task>/`
-holding the composed config as `config.json` and the checkpoints as
-`ckpt/model_<it>.pkl` (flax-layout params, which `pbhc_tpu` loads too), saved
-every `save_interval` iterations and at the end, and prints the JAX CLI's log
-line with window-based fps, plus the rollout and update seconds of the
-logged iteration.
+holding the composed config as `config.json` (which the port's evaluation
+reads) and as `config.yaml` (which `pbhc_tpu`'s evaluation reads), and the
+checkpoints as `ckpt/model_<it>.pkl` (flax-layout params, which `pbhc_tpu`
+loads too), saved every `save_interval` iterations and at the end, and
+prints the JAX CLI's log line with window-based fps, plus the rollout and
+update seconds of the logged iteration.
 
 Not ported yet (ROADMAP queue 1 item 9): resume from a checkpoint (with or
 without optimizer state), teacher loading, TensorBoard, wandb, the watchdog
@@ -28,7 +29,7 @@ from pathlib import Path
 import torch
 
 from pbhc_tpu_torch.agents.mh_ppo import MHPPO
-from pbhc_tpu_torch.config.loader import compose, parse_cli
+from pbhc_tpu_torch.config.loader import compose, parse_cli, to_yaml
 from pbhc_tpu_torch.envs.tracking_env import MotionTrackingEnv
 from pbhc_tpu_torch.eval.batch_eval import ENV_TARGET, set_precision
 from pbhc_tpu_torch.utils.checkpoint import save_checkpoint
@@ -73,6 +74,7 @@ def main(argv=None):
                / f"{timestamp}-{cfg.experiment_name}-{cfg.get('log_task_name', 'task')}")
     exp_dir.mkdir(parents=True, exist_ok=True)
     (exp_dir / "config.json").write_text(json.dumps(cfg, indent=1))
+    (exp_dir / "config.yaml").write_text(to_yaml(cfg))
     print(f"[train] experiment dir: {exp_dir}")
 
     env, algo, ts = build(cfg)

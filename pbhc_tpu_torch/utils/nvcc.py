@@ -1,9 +1,10 @@
 """Build the port's CUDA sources into plain-C shared libraries with `nvcc`.
 
 Each library is compiled for `sm_90a` at first use into
-`<repo>/build/kernels/<name>-<hash>/`, keyed by a hash of its sources and
-flags, and loaded with `ctypes`. No PyTorch headers are involved, so a build
-takes seconds. Nothing here runs at import time.
+`<repo>/build/kernels/<name>-<hash>/`, keyed by a hash of its sources, the
+headers they include and the flags, and loaded with `ctypes`. No PyTorch
+headers are involved, so a build takes seconds. Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
@@ -24,17 +25,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 @dataclass(frozen=True)
 class CudaLibrary:
-    """One shared library: its name and its sources under `csrc/`."""
+    """One shared library: its name, the sources `nvcc` compiles and the
+    headers they include (hashed, never compiled on their own), all under
+    `root`: `csrc/`, or an earlier design's sources for the A/B timing of a
+    kernel redesign (`eval/kernel_bench.py old=`)."""
 
     name: str
     sources: tuple
+    headers: tuple = ()
+    root: Path = CSRC
 
     def paths(self):
-        return [CSRC / s for s in self.sources]
+        return [self.root / s for s in self.sources]
 
     def target(self) -> Path:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in self.paths():
+        for p in self.paths() + [self.root / s for s in self.headers]:
             h.update(p.name.encode())
             h.update(p.read_bytes())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}" / f"lib{self.name}.so"

@@ -85,3 +85,16 @@ def test_wrapper_rejects_bad_input(bad):
     else:
         with pytest.raises(ValueError, match="shape"):
             ck.apgd_lanes(A[:-1], b, mu, active, x0, iters=4)
+
+
+
+@pytest.mark.parametrize("kernel", ["apgd_lanes", "apgd_envfirst"])
+def test_tile_sweep_entry_raises_on_cpu(kernel):
+    # the tile-sweep entries launch a kernel or raise: they have no CPU version
+    A, b, mu, active, x0 = map(torch.as_tensor, _problem(10))
+    if kernel == "apgd_lanes":
+        call = lambda: ck.apgd_lanes_at_tile(A, b, mu, active, x0, 4, 8, 1)
+    else:
+        call = lambda: ck.apgd_envfirst_at_tile(A.permute(2, 0, 1), b.T, mu, active.T, 4, 8, 1)
+    with pytest.raises(ValueError, match="no implementation for device cpu"):
+        call()
