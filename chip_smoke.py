@@ -10,7 +10,14 @@ holds every CUDA kernel they launch against its plain PyTorch version:
   configuration (G1 23-DoF, 4096 envs, full domain randomisation, random
   weights from seed 0; run directories under `build/chip_smoke/`), once with
   `solver: lanes` (kernel 1) and once with `solver: pallas` (kernel 2,
-  `apgd_envfirst`).
+  `apgd_envfirst`);
+- KungfuBot2 serving: `episode_ratio` on the committed 23-DoF teacher
+  (`GeneralTrackingEnv`, Conv1d mimic networks) at 2048 envs over the
+  whole clip (kernel 1);
+- KungfuBot2 training: the training CLI on the 23-DoF teacher selection set
+  (PPOMimic, RL + DAgger) and the student selection set distilled from the
+  committed teacher, 2048 envs, random weights from seed 0 (kernel 1), and
+  a resume of the teacher run from its checkpoint.
 Phases, each announced when it starts and when it ends:
 
   build            - compile both kernels from `pbhc_tpu_torch/csrc/` (nvcc, sm_90a, in parallel)
@@ -18,11 +25,19 @@ Phases, each announced when it starts and when it ends:
   substep          - one lanes control step at 4096 envs, kernel 1 vs plain solve
   substep-allrows  - the same with `contact_cap: 0` (every row, R = 38)
   substep-envfirst - one env-first control step at 4096 envs, kernel 2 vs plain solve
+  substep-29dof    - one lanes control step of the 29-DoF KungfuBot2 teacher config at 2048 envs,
+                     kernel 1 vs plain solve
   serving          - the episode_ratio rollout; kernel launches counted from 0
-  train-lanes      - the training CLI for 3 iterations, solver lanes; launches counted from 0
+  serving-kb2      - the KungfuBot2 teacher's episode_ratio rollout at 2048 envs; counted from 0
+  train-lanes      - the training CLI for 2 iterations, solver lanes; launches counted from 0
   train-pallas     - the training CLI for 2 iterations, solver pallas; launches counted from 0
   update           - one minibatch update on the card and on the CPU, same state and batch
   checkpoint       - read back the `.pkl` the train-pallas run wrote
+  train-kb2-teacher - the training CLI, KungfuBot2 teacher, 2 iterations (RL + DAgger, then RL)
+  train-kb2-student - the training CLI, KungfuBot2 student distilled from the committed teacher,
+                     2 iterations; its history encoder must stay the teacher's
+  update-kb2       - one PPOMimic RL minibatch update on the card and on the CPU
+  resume           - the teacher run resumed from its checkpoint to 3 iterations in all
   report           - the `kernels` JSON line, the card line, the final result line
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
@@ -50,8 +65,16 @@ SETTLE_STEPS = 10   # steps before a kernel-vs-plain control step
 TRAIN_SELECTIONS = ["exp=motion_tracking", "robot=g1_23dof", "obs=motion_tracking",
                     "rewards=motion_tracking", "domain_rand=main", "simulator=tpu"]
 TRAIN_OVERRIDES = [f"num_envs={NUM_ENVS}", "robot.motion.motion_file=assets/motions/Horse-stance_punch.pkl"]
-TRAIN_ITERS = {"lanes": 3, "pallas": 2}
+TRAIN_ITERS = {"lanes": 2, "pallas": 2}   # lanes cut from 3 to 2 when the KungfuBot2 phases came
 UPDATE_SAMPLES = 24576   # one minibatch of the training config: 24 steps x 4096 envs / 4
+KB2_CKPT = "artifacts/kb2_teacher23_r3/ckpt/model_24000.pkl"
+KB2_ENVS = 2048      # num_envs of the committed KungfuBot2 runs
+KB2_MOTION = "robot.motion.motion_file=assets/motions/g1_ue_walk_23dof.pkl"
+KB2_SELECTIONS = {role: ["exp=general_tracking", "robot=g1_23dof_student", f"obs=general_tracking_{role}",
+                         "rewards=general_tracking", "domain_rand=main", "simulator=tpu"]
+                  for role in ("teacher", "student")}
+KB2_ITERS = 2        # iteration 0 runs RL + DAgger (dagger_update_freq 20), iteration 1 RL only
+KB2_UPDATE_SAMPLES = 12288   # one PPOMimic minibatch: 24 steps x 2048 envs / 4
 
 # Tolerances (each stated with its reason):
 # - kernel vs plain solve: the two sum the 36-term matvecs in different
@@ -76,6 +99,16 @@ RATIO_BAND = 0.02
 #   the two devices sum the products in different orders; 1e-5 is the bound
 #   tests/test_torch_ppo.py holds the port to against optax.
 UPDATE_ATOL = 1e-5
+# - KungfuBot2 serving ratio: the JAX package's own figure for the committed
+#   23-DoF teacher at 2048 envs on the CPU (python -m pbhc_tpu.eval.batch_eval
+#   checkpoint=artifacts/kb2_teacher23_r3/ckpt/model_24000.pkl mode=ratio
+#   num_envs=2048, see PERF.md: ratio_std 0.103, so the mean's standard error
+#   is 0.0023). The port draws its domain randomisation and observation noise
+#   from other random streams, so two runs differ by ~0.003 from sampling
+#   alone; the band of 0.02 is six times that, as RATIO_BAND is for the
+#   side-kick, and fails a policy or env that loses 2% more of the clip.
+KB2_JAX_RATIO = 0.9878615475772472
+KB2_RATIO_BAND = 0.02
 
 
 def log(msg):
@@ -140,7 +173,41 @@ def update_batch(torch, algo, ts, n):
                 returns=values + 0.3 * rn(n, algo.num_rew), advantages=rn(n))
 
 
+def mimic_cpu_copy(algo, ts):
+    """The net and optimizer states of a PPOMimic train state on the CPU."""
+    out = algo.new_train_state(copy.deepcopy(ts.net).cpu())
+    for src, dst in ((ts.opt, out.opt), (ts.hist_opt, out.hist_opt)):
+        dst.load_state_dict(src.state_dict())
+    return out
+
+
+def mimic_update_batch(torch, algo, ts, cpu, n):
+    """A seeded RL minibatch of `n` samples near the policy of `cpu` (see
+    update_batch): the observations are the card env's over n / N control
+    steps from `ts`'s env state under the deterministic history-latent
+    action, the stored values the critic's, the stored mean the actor's
+    moved by 0.01."""
+    from pbhc_tpu_torch.agents.networks import gaussian_log_prob
+    from pbhc_tpu_torch.agents.ppo_mimic import OBS_KEYS
+
+    state, obs, seen = ts.env_state, ts.obs, []
+    with torch.no_grad():
+        while sum(o["actor_obs"].shape[0] for o in seen) < n:
+            seen.append({k: obs[k].cpu() for k in OBS_KEYS})
+            state, obs, _, _, _ = algo.env.step(state, ts.net.act(obs, True)[0])
+        obs = {k: torch.cat([o[k] for o in seen])[:n] for k in OBS_KEYS}
+        mean, std = cpu.net.act(obs, False)
+        values = cpu.net.evaluate(obs)
+    g = torch.Generator().manual_seed(2)
+    rn = lambda *shape: torch.randn(shape, generator=g)
+    mean = mean + 0.01 * rn(*mean.shape)
+    actions = mean + std * rn(*mean.shape)
+    return dict(obs, actions=actions, logp=gaussian_log_prob(mean, std, actions), mean=mean, std=std,
+                values=values, returns=values + 0.3 * rn(*values.shape), advantages=rn(n))
+
+
 def main():
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -152,12 +219,13 @@ def main():
     from pbhc_tpu_torch import train
     from pbhc_tpu_torch.agents.convert import flax_params, from_flax
     from pbhc_tpu_torch.agents.networks import actor_from_config, critic_from_config
-    from pbhc_tpu_torch.config.loader import compose
+    from pbhc_tpu_torch.config.loader import Cfg, apply_overrides, compose, load_snapshot
+    from pbhc_tpu_torch.envs.general_tracking_env import GeneralTrackingEnv
     from pbhc_tpu_torch.envs.tracking_env import MotionTrackingEnv
     from pbhc_tpu_torch.eval import batch_eval, kernel_bench
     from pbhc_tpu_torch.sim import contact_kernel
     from pbhc_tpu_torch.utils import nvcc
-    from pbhc_tpu_torch.utils.checkpoint import load_checkpoint_payload
+    from pbhc_tpu_torch.utils.checkpoint import OPT_KEY, load_checkpoint_payload
 
     batch_eval.set_precision()
     dev = torch.device("cuda:0")
@@ -194,9 +262,10 @@ def main():
                     log(f"  {name}: {line.strip()}")
 
     with phase("kernel"):
-        N = NUM_ENVS
         for name, (kernel, _, plain, problem, bound, _) in kernel_bench.KERNELS.items():
-            for R in (ROWS, ALL_ROWS):
+            # kernel 1 also at the KungfuBot2 paths' shape (R = 12, N = 2048)
+            shapes = [(ROWS, NUM_ENVS), (ALL_ROWS, NUM_ENVS)] + ([(ROWS, KB2_ENVS)] if name == "apgd_lanes" else [])
+            for R, N in shapes:
                 args = problem(R, N, dev, R)
                 out = kernel(*args, ITERS)
                 ref = plain(*args, ITERS)
@@ -210,8 +279,9 @@ def main():
                           ms_device=kernel_bench.device_ms(lambda: kernel(*args, ITERS), 50, name),
                           plain_ms=kernel_bench.cuda_ms(lambda: plain(*args, ITERS), 10),
                           bound_ms=bound_ms, bound_by=bound_by, tile=contact_kernel.tile(name, R))
-                # the paths' shape (R = 12) is the kernel's entry; every row (R = 38) rides along
-                stats[name].update(st if R == ROWS else {f"r{R}": st})
+                # the first paths' shape (R = 12, N = 4096) is the kernel's entry; every row
+                # (R = 38) and the KungfuBot2 paths' N = 2048 ride along
+                stats[name].update(st if (R, N) == (ROWS, NUM_ENVS) else {f"r{R}" if R != ROWS else f"n{N}": st})
                 log(f"{name} R={R} N={N} iters={ITERS}: max_abs_err {err:.3e} (tol {KERNEL_ATOL:g}), "
                     f"|ref| max {float(ref.abs().max()):.3f}, kernel {st['ms']:.5f} ms per launch back to back, "
                     f"{st['ms_device']:.5f} ms on the device, plain {st['plain_ms']:.5f} ms, "
@@ -221,18 +291,15 @@ def main():
                     ok = False
                 del args, out, ref
 
-    def lanes_step_check(overrides, rows):
-        """One lanes control step of the side-kick run at 4096 envs (after
-        SETTLE_STEPS under the policy), kernel 1 vs its plain version; every
-        solve must have `rows` rows."""
+    def lanes_step_check(env, state, obs, act, rows):
+        """One lanes control step of `env` (after SETTLE_STEPS under `act`),
+        kernel 1 vs its plain version; every solve must have `rows` rows."""
         nonlocal ok
-        env, actor, _ = batch_eval.load(CKPT, NUM_ENVS, overrides, device=dev)
-        state, obs = batch_eval.start_episodes(env)
         with torch.no_grad():
             # settle onto the soles first: at clip time 0 no contact row is active
             for _ in range(SETTLE_STEPS):
-                state, obs, _, _, _ = env.step(state, actor(obs["actor_obs"])[0])
-            mean, _ = actor(obs["actor_obs"])
+                state, obs, _, _, _ = env.step(state, act(obs))
+            mean = act(obs)
         target = mean * env.action_scales + state.default_dof_pos
         kp, kd = state.kp_scale * env.p_gains, state.kd_scale * env.d_gains
 
@@ -253,22 +320,28 @@ def main():
         torch.cuda.synchronize()
         worst, step_ok = compare_steps(torch, outs, STEP_RTOL)
         ok = ok and step_ok
+        n = env.num_envs
         in_contact = int((outs["plain"].contact_forces.abs().sum((1, 2)) > 0).sum())
-        log(f"one lanes control step at {NUM_ENVS} envs, R = {sorted(set(seen))} rows ({in_contact} envs "
+        log(f"one lanes control step at {n} envs, {env.nd} DoF, R = {sorted(set(seen))} rows ({in_contact} envs "
             f"with contact impulses), kernel vs plain solve: max relative diff {worst:.3e} (tol {STEP_RTOL:g})")
-        if in_contact < NUM_ENVS // 2:
+        if in_contact < n // 2:
             log("FAIL: too few envs in contact for the comparison to test the solve")
             ok = False
         if set(seen) != {rows}:
             log(f"FAIL: the step solved with R = {sorted(set(seen))} rows, want {rows}")
             ok = False
 
+    def side_kick_step_check(overrides, rows):
+        env, actor, _ = batch_eval.load(CKPT, NUM_ENVS, overrides, device=dev)
+        state, obs = batch_eval.start_episodes(env)
+        lanes_step_check(env, state, obs, lambda o: actor(o["actor_obs"])[0], rows)
+
     with phase("substep"):
-        lanes_step_check((), ROWS)
+        side_kick_step_check((), ROWS)
 
     with phase("substep-allrows"):
         # contact_cap 0 (EngineOptions' default) solves every row of the model
-        lanes_step_check(("simulator.config.contact_cap=0",), ALL_ROWS)
+        side_kick_step_check(("simulator.config.contact_cap=0",), ALL_ROWS)
 
     with phase("substep-envfirst"):
         cfg = compose(TRAIN_SELECTIONS, TRAIN_OVERRIDES + ["simulator.config.solver=pallas"])
@@ -304,6 +377,17 @@ def main():
             ok = False
         del cfg, env, state, obs, outs
 
+    with phase("substep-29dof"):
+        # the 29-DoF KungfuBot2 teacher run's config (21 spheres, 17 pairs,
+        # R = 12 with its caps), holding the default pose from clip start
+        cfg = Cfg.wrap(apply_overrides(load_snapshot("kb2_teacher29_r5"), [f"num_envs={KB2_ENVS}"]))
+        env = GeneralTrackingEnv(cfg, KB2_ENVS, device=dev, seed=0)
+        state, obs = batch_eval.start_episodes(env)
+        zero = torch.zeros((KB2_ENVS, env.num_actions), device=dev)
+        lanes_step_check(env, state, obs, lambda o: zero, ROWS)
+        del cfg, env, state, obs
+        torch.cuda.empty_cache()
+
     with phase("serving"):
         res = count("serving", lambda: batch_eval.episode_ratio(CKPT, NUM_ENVS, device=dev))
         log("episode_ratio: " + json.dumps(res))
@@ -317,6 +401,19 @@ def main():
         log(f"control_steps_per_sec {res['control_steps_per_sec']:.3f} at {NUM_ENVS} envs on {card}")
     torch.cuda.empty_cache()
 
+    with phase("serving-kb2"):
+        res = count("serving-kb2", lambda: batch_eval.episode_ratio(KB2_CKPT, KB2_ENVS, device=dev))
+        log("episode_ratio (KungfuBot2 teacher): " + json.dumps(res))
+        expect_launches("serving-kb2", {"apgd_lanes": 4 * res["episode_steps"], "apgd_envfirst": 0})
+        if res["nonfinite_env_steps"] != 0:
+            log(f"FAIL: {res['nonfinite_env_steps']} env-steps ended non-finite")
+            ok = False
+        if not abs(res["ratio"] - KB2_JAX_RATIO) <= KB2_RATIO_BAND:
+            log(f"FAIL: ratio {res['ratio']:.6f} outside {KB2_JAX_RATIO} +- {KB2_RATIO_BAND}")
+            ok = False
+        log(f"serving-kb2: control_steps_per_sec {res['control_steps_per_sec']:.3f} at {KB2_ENVS} envs on {card}")
+    torch.cuda.empty_cache()
+
     trained = {}
     for solver, kernel in (("lanes", "apgd_lanes"), ("pallas", "apgd_envfirst")):
         path, iters = f"train-{solver}", TRAIN_ITERS[solver]
@@ -326,7 +423,7 @@ def main():
             # the training CLI, logging every iteration (logging_interval 5 -> 1)
             argv = TRAIN_SELECTIONS + TRAIN_OVERRIDES + [
                 f"simulator.config.solver={solver}", f"algo.config.num_learning_iterations={iters}",
-                "algo.config.logging_interval=5", f"base_dir={base}"]
+                "algo.config.logging_interval=5", f"base_dir={base}", f"artifact_dir={base}/artifacts"]
             algo, ts, logs = count(path, lambda: train.main(argv))
             other = "apgd_envfirst" if kernel == "apgd_lanes" else "apgd_lanes"
             expect_launches(path, {kernel: 96 * iters, other: 0})
@@ -343,7 +440,7 @@ def main():
             log(f"{path}: last log: rew/step {logs[-1]['Train/mean_step_reward']:.4f}, "
                 f"kl {logs[-1]['Loss/kl']:.4f}, lr {logs[-1]['Loss/lr']:.2e}, "
                 f"value loss {logs[-1]['Loss/value']:.4f}")
-            ckpts = glob.glob(os.path.join(base, "*", "*", "ckpt", f"model_{iters}.pkl"))
+            ckpts = glob.glob(os.path.join(base, "PBHC_TPU", "*", "ckpt", f"model_{iters}.pkl"))
             trained[solver] = (algo, ts, ckpts)
         torch.cuda.empty_cache()
 
@@ -386,6 +483,110 @@ def main():
         if not (same and payload["iteration"] == TRAIN_ITERS["pallas"]):
             log("FAIL: the checkpoint does not read back")
             ok = False
+
+    def train_kb2(path, role, extra):
+        """The training CLI on a KungfuBot2 selection set at 2048 envs;
+        returns (algo, ts, logs, run directory)."""
+        nonlocal ok
+        base = os.path.join(REPO, "build", "chip_smoke", path)
+        shutil.rmtree(base, ignore_errors=True)
+        argv = KB2_SELECTIONS[role] + [f"num_envs={KB2_ENVS}", KB2_MOTION, "algo.config.logging_interval=5",
+                                       f"base_dir={base}", f"artifact_dir={base}/artifacts",
+                                       f"experiment_name=kb2_{role}"] + extra
+        algo, ts, logs = count(path, lambda: train.main(argv))
+        bad = sorted({k for it_log in logs for k, v in it_log.items() if v != v or abs(v) == float("inf")})
+        if bad:
+            log(f"FAIL: {path}: non-finite logged values {bad}")
+            ok = False
+        if len(logs) > 1:
+            timed = logs[1:]       # the first iteration warms up cuDNN, cuBLAS and the allocator
+            eps = algo.num_steps * KB2_ENVS * len(timed) / sum(x["rollout_s"] + x["update_s"] for x in timed)
+            log(f"{path}: train_env_steps_per_sec {eps:.1f} at {KB2_ENVS} envs on {card} (iterations 2-"
+                f"{len(logs)}); per iteration rollout/update seconds "
+                + ", ".join(f"{x['rollout_s']:.3f}/{x['update_s']:.3f}" for x in logs))
+        runs = sorted(glob.glob(os.path.join(base, "PBHC_TPU", "*-kb2_*")))
+        return algo, ts, logs, runs[-1]
+
+    with phase("train-kb2-teacher"):
+        algo, ts, logs, run = train_kb2("train-kb2-teacher", "teacher",
+                                        [f"algo.config.num_learning_iterations={KB2_ITERS}"])
+        expect_launches("train-kb2-teacher", {"apgd_lanes": 96 * KB2_ITERS, "apgd_envfirst": 0})
+        need = {"Loss/priv_reg", "Loss/surrogate", "Loss/value", "Loss/kl", "Loss/lr"}
+        if len(logs) != KB2_ITERS or not need <= set(logs[0]) or "Loss/hist_latent" not in logs[0] \
+                or "Loss/hist_latent" in logs[1]:
+            log(f"FAIL: train-kb2-teacher logged {[sorted(x) for x in logs]}")
+            ok = False
+        log(f"train-kb2-teacher: iteration 1 (RL + DAgger) priv_reg {logs[0]['Loss/priv_reg']:.4f}, "
+            f"hist_latent {logs[0]['Loss/hist_latent']:.4f}; iteration 2 kl {logs[1]['Loss/kl']:.4f}, "
+            f"value loss {logs[1]['Loss/value']:.4f}")
+        teacher_run = (algo, ts, run)
+    torch.cuda.empty_cache()
+
+    with phase("train-kb2-student"):
+        algo, ts, logs, _ = train_kb2("train-kb2-student", "student", [
+            f"algo.config.num_learning_iterations={KB2_ITERS}", f"algo.config.teacher_model_path={KB2_CKPT}",
+            "algo.config.dagger_only=true"])
+        expect_launches("train-kb2-student", {"apgd_lanes": 96 * KB2_ITERS, "apgd_envfirst": 0})
+        frozen = all(torch.equal(a, b) for a, b in zip(ts.net.actor.history_encoder.parameters(),
+                                                        algo.teacher.net.actor.history_encoder.parameters()))
+        log(f"train-kb2-student: Loss/bc {[round(x['Loss/bc'], 5) for x in logs]}, history encoder "
+            f"{'identical to' if frozen else 'DIFFERENT from'} the teacher's after training")
+        if len(logs) != KB2_ITERS or not frozen:
+            log("FAIL: train-kb2-student")
+            ok = False
+        del algo, ts, logs
+    torch.cuda.empty_cache()
+
+    with phase("update-kb2"):
+        algo, ts, _ = teacher_run
+        cpu = mimic_cpu_copy(algo, ts)
+        # the configured lr (the trained state's adaptive lr may sit at its
+        # floor) and an iteration inside the priv-reg ramp (coefficient 0.05)
+        for st, d in ((ts, dev), (cpu, "cpu")):
+            st.lr, st.iteration = torch.tensor(algo.learning_rate, device=d), 2500
+        batch = mimic_update_batch(torch, algo, ts, cpu, KB2_UPDATE_SAMPLES)
+        m_cpu = algo.update_rl(cpu, batch)
+        m_gpu = algo.update_rl(ts, {k: v.to(dev) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        worst = max(float((a.detach().cpu() - c.detach()).abs().max())
+                    for a, c in zip(ts.net.parameters(), cpu.net.parameters()))
+        lr_same = float(ts.lr) == float(cpu.lr)
+        log(f"one PPOMimic RL minibatch update of {KB2_UPDATE_SAMPLES} samples, card vs CPU: params max abs "
+            f"diff {worst:.3e} (tol {UPDATE_ATOL:g}), lr {float(ts.lr):.3e} vs {float(cpu.lr):.3e}, kl "
+            f"{float(m_gpu['kl']):.6f} vs {float(m_cpu['kl']):.6f}, priv_reg {float(m_gpu['priv_reg']):.6f} vs "
+            f"{float(m_cpu['priv_reg']):.6f}")
+        if not (worst <= UPDATE_ATOL and lr_same):
+            log("FAIL: the card's PPOMimic update disagrees with the CPU's")
+            ok = False
+        del cpu, batch
+    torch.cuda.empty_cache()
+
+    with phase("resume"):
+        _, _, run = teacher_run
+        ckpt = os.path.join(run, "ckpt", f"model_{KB2_ITERS}.pkl")
+        saved = load_checkpoint_payload(ckpt)
+        algo, ts, logs, run3 = train_kb2("resume", "teacher", [f"checkpoint={ckpt}",
+                                                               f"total_iterations={KB2_ITERS + 1}"])
+        expect_launches("resume", {"apgd_lanes": 96, "apgd_envfirst": 0})
+        opt_saved, hist_saved = saved[OPT_KEY]["opt"], saved[OPT_KEY]["hist_opt"]
+        # iteration 2 is RL only: `opt` took 5 x 4 steps from the saved count;
+        # `hist_opt` did not move, so its moments are the saved ones exactly
+        hist_same = ts.hist_opt.count == hist_saved["count"] and all(
+            np.array_equal(m.cpu().numpy(), s) for m, s in zip(ts.hist_opt.mu + ts.hist_opt.nu,
+                                                              hist_saved["mu"] + hist_saved["nu"]))
+        resumed = os.path.join(run3, "ckpt", f"model_{KB2_ITERS + 1}.pkl")
+        line = f"resumed from {ckpt} at iteration {KB2_ITERS}"
+        log_ok = line in open(os.path.join(run3, "train.log")).read()
+        log(f"resume: ran {[x['iteration'] for x in logs]}, opt steps {opt_saved['count']} -> {ts.opt.count}, "
+            f"hist_opt moments {'restored' if hist_same else 'NOT restored'}, saved lr {saved['lr']:.3e}, "
+            f"wrote {os.path.relpath(resumed, REPO)}: {os.path.isfile(resumed)}")
+        if not (log_ok and hist_same and [x["iteration"] for x in logs] == [KB2_ITERS + 1]
+                and ts.iteration == KB2_ITERS + 1 and ts.opt.count == opt_saved["count"] + 20
+                and os.path.isfile(resumed)):
+            log("FAIL: the resumed run did not continue from the saved state")
+            ok = False
+        del teacher_run, algo, ts
+    torch.cuda.empty_cache()
 
     if not ok:
         log("chip_smoke: FAILED")

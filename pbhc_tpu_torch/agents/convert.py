@@ -1,37 +1,100 @@
-"""Carry actor and critic weights between flax params and the torch modules.
+"""Carry network weights between flax params and the torch modules.
 
-A flax `Dense_i` stores `kernel [in, out]` and `bias [out]`; `nn.Linear`
-stores `weight [out, in]`. The flax tree of either network is
-`{"params": {"MLP_0": {"Dense_i": {"kernel", "bias"}}}}`, and the actor's also
-holds `params/std`. `*_from_flax` maps `Dense_i` onto the i-th Linear layer
-(and `std` onto `std`); `flax_params` writes that tree back as numpy arrays,
+Each torch layer has a path in the flax tree:
+- an `MLP`'s i-th Linear is `Dense_i` under the MLP's path; the `mlp` of
+  `GaussianActor` and `Critic` is flax's `MLP_0`, so their trees are
+  `{"params": {"MLP_0": {"Dense_i": ...}}}` (the actor's also holds `std`);
+- any other submodule sits under its own attribute name, which the mimic
+  networks choose to be flax's (`params/actor/history_encoder/Conv_0`,
+  `params/critic_ln`, ...); a module's own parameter (`std`) is a leaf.
+
+Per layer: `Dense` `kernel [in, out]` is `nn.Linear.weight [out, in]`; `Conv`
+`kernel [k, in, out]` is `nn.Conv1d.weight [out, in, k]`; `LayerNorm` `scale`
+is its `weight`; biases are equal. `state_dict_from_flax` maps a flax tree
+onto a network and refuses one whose layers or shapes differ;
+`flax_params` writes the network back as that tree of float32 numpy arrays,
 the layout the checkpoint pickles hold.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
+
+from pbhc_tpu_torch.agents.networks import MLP, LayerNorm
+
+_FLAX_NAME = {"mlp": "MLP_0"}
+
+
+def _layers(module, path=()):
+    """(flax path, torch layer) for every parameterised layer of `module`,
+    and (flax path, parameter) for every parameter a module holds itself."""
+    if isinstance(module, MLP):
+        for i, lin in enumerate(module.linear_layers()):
+            yield path + (f"Dense_{i}",), lin
+        return
+    if isinstance(module, (nn.Linear, nn.Conv1d, LayerNorm)):
+        yield path, module
+        return
+    for name, p in module.named_parameters(recurse=False):
+        yield path + (name,), p
+    for name, child in module.named_children():
+        yield from _layers(child, path + (_FLAX_NAME.get(name, name),))
+
+
+def _to_flax(layer):
+    """{flax leaf name: (torch parameter, torch layout -> flax layout)}."""
+    same = lambda a: a
+    if isinstance(layer, nn.Parameter):
+        return {None: (layer, same)}
+    if isinstance(layer, nn.Linear):
+        return {"kernel": (layer.weight, lambda w: w.T), "bias": (layer.bias, same)}
+    if isinstance(layer, nn.Conv1d):
+        return {"kernel": (layer.weight, lambda w: w.transpose(2, 1, 0)), "bias": (layer.bias, same)}
+    return {"scale": (layer.weight, same), "bias": (layer.bias, same)}
+
+
+def _from_flax_layout(arr):
+    """Inverse of `_to_flax`'s layout changes (by rank: Dense, Conv kernels)."""
+    if arr.ndim == 2:
+        return arr.T
+    if arr.ndim == 3:
+        return arr.transpose(2, 1, 0)
+    return arr
+
+
+def _flat(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, path + (k,))
+        else:
+            yield "/".join(path + (k,)), v
+
+
+def _entries(net):
+    """(flax leaf path, torch parameter, torch layout -> flax layout)."""
+    for path, layer in _layers(net):
+        for leaf, (param, fwd) in _to_flax(layer).items():
+            yield "/".join(path + ((leaf,) if leaf else ())), param, fwd
 
 
 def state_dict_from_flax(flax_params, net) -> dict:
-    """`net`'s state_dict from flax params of the same architecture (an actor
-    or a critic of `agents/networks.py`)."""
+    """`net`'s state_dict from flax params of the same architecture; a tree
+    with other layers or shapes is refused."""
     p = flax_params["params"] if "params" in flax_params else flax_params
-    dense = p["MLP_0"]
-    linears = net.linear_layers()
-    if len(dense) != len(linears):
-        raise ValueError(f"checkpoint has {len(dense)} Dense layers, the network has {len(linears)}")
-    inv = {id(m): n for n, m in net.named_modules()}
+    have = {k: np.asarray(v, dtype=np.float32) for k, v in _flat(p)}
+    entries = list(_entries(net))
+    want = {k for k, _, _ in entries}
+    if set(have) != want:
+        raise ValueError(f"checkpoint layers differ from the network's: checkpoint only "
+                         f"{sorted(set(have) - want)[:4]}, network only {sorted(want - set(have))[:4]}")
+    names = {id(t): n for n, t in net.named_parameters()}
     sd = {}
-    for i, lin in enumerate(linears):
-        d = dense[f"Dense_{i}"]
-        kernel = np.asarray(d["kernel"], dtype=np.float32)
-        if kernel.shape != (lin.in_features, lin.out_features):
-            raise ValueError(f"Dense_{i} kernel {kernel.shape} != ({lin.in_features}, {lin.out_features})")
-        sd[f"{inv[id(lin)]}.weight"] = torch.from_numpy(kernel.T.copy())
-        sd[f"{inv[id(lin)]}.bias"] = torch.from_numpy(np.asarray(d["bias"], dtype=np.float32).copy())
-    if hasattr(net, "std"):
-        sd["std"] = torch.from_numpy(np.asarray(p["std"], dtype=np.float32).copy())
+    for key, param, fwd in entries:
+        shape = fwd(np.empty(tuple(param.shape), np.float32)).shape
+        if have[key].shape != shape:
+            raise ValueError(f"{key} {have[key].shape} != {shape}")
+        sd[names[id(param)]] = torch.tensor(np.ascontiguousarray(_from_flax_layout(have[key])))
     return sd
 
 
@@ -41,13 +104,18 @@ def from_flax(flax_params, net):
     return net
 
 
+def flax_params_tree(net) -> dict:
+    """`net`'s weights as the flax tree under `params`, float32 numpy arrays."""
+    tree: dict = {}
+    for key, param, fwd in _entries(net):
+        *parents, leaf = key.split("/")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = np.array(fwd(param.detach().cpu().numpy()), order="C", copy=True)
+    return tree
+
+
 def flax_params(net) -> dict:
-    """`net`'s weights as the flax params tree, float32 numpy arrays."""
-    dense = {}
-    for i, lin in enumerate(net.linear_layers()):
-        dense[f"Dense_{i}"] = {"bias": lin.bias.detach().cpu().numpy().copy(),
-                               "kernel": lin.weight.detach().cpu().numpy().T.copy()}
-    params = {"MLP_0": dense}
-    if hasattr(net, "std"):
-        params["std"] = net.std.detach().cpu().numpy().copy()
-    return {"params": params}
+    """`net`'s weights as the flax params tree `{"params": ...}`."""
+    return {"params": flax_params_tree(net)}

@@ -59,6 +59,20 @@ class Adam:
             v.copy_((1.0 - self.b2) * (g * g) + self.b2 * v)
             p.add_(-lr * ((m / bc1) / (torch.sqrt(v / bc2) + self.eps)))
 
+    def state_dict(self) -> dict:
+        """Step count and moments as numpy arrays, in parameter order."""
+        return {"count": self.count, "mu": [m.cpu().numpy().copy() for m in self.mu],
+                "nu": [v.cpu().numpy().copy() for v in self.nu]}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        if len(state["mu"]) != len(self.mu) or any(
+                tuple(a.shape) != tuple(m.shape) for a, m in zip(state["mu"], self.mu)):
+            raise ValueError("optimizer state does not fit the network's parameters")
+        self.count = int(state["count"])
+        for dst, a in (*zip(self.mu, state["mu"]), *zip(self.nu, state["nu"])):
+            dst.copy_(torch.as_tensor(a))
+
 
 @dataclasses.dataclass
 class TrainState:

@@ -1,10 +1,11 @@
 """Actor and critic networks in torch (counterpart of `pbhc_tpu/agents/networks.py`).
 
 `MLP`, `GaussianActor` (an MLP mean and a state-independent learnable std),
-`Critic` (one value per reward head) and the gaussian helpers
-(`networks.py:18`, `:75-98`, `:170-176`). Layer order and widths match the
-flax modules, so `agents/convert.py` maps flax params onto them one to one,
-and `flax_init_` draws fresh weights as flax's `Dense` does.
+`Critic` (one value per reward head), a `LayerNorm` with flax's numerics
+and the gaussian helpers (`networks.py:18`, `:75-98`, `:170-176`). Layer
+order and widths match the flax modules, so `agents/convert.py` maps flax
+params onto them one to one, and `flax_init_` draws fresh weights as flax's
+`Dense`, `Conv` and `LayerNorm` do.
 """
 from __future__ import annotations
 
@@ -32,6 +33,24 @@ class MLP(nn.Module):
 
     def linear_layers(self):
         return [m for m in self.net if isinstance(m, nn.Linear)]
+
+
+class LayerNorm(nn.Module):
+    """flax's `nn.LayerNorm` over the last axis: epsilon 1e-6 and the "fast"
+    variance E[x^2] - E[x]^2 clipped at 0, then
+    (x - mean) * (rsqrt(var + eps) * scale) + bias, in flax's order of
+    operations. `weight` is flax's `scale`."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = float(eps)
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
 class GaussianActor(nn.Module):
@@ -67,16 +86,24 @@ class Critic(nn.Module):
 
 
 def flax_init_(net, generator: torch.Generator):
-    """Fresh weights as flax's `Dense` draws them: kernels lecun_normal (a
-    normal truncated at two standard deviations, scaled to variance 1/fan_in)
-    and zero biases. `std` keeps its constructor value (`init_noise_std`)."""
-    for lin in net.linear_layers():
-        # 0.8796... is the std of a unit normal truncated to [-2, 2]
-        # (jax.nn.initializers.variance_scaling, "truncated_normal")
-        sd = math.sqrt(1.0 / lin.in_features) / 0.87962566103423978
+    """Fresh weights as flax draws them, module by module in registration
+    order: `Dense` and `Conv` kernels lecun_normal (a normal truncated at two
+    standard deviations, scaled to variance 1/fan_in, fan_in = in_features,
+    or in_channels x kernel size for a Conv) and zero biases; `LayerNorm`
+    scale ones and bias zeros. A network's `std` keeps its constructor value
+    (`init_noise_std`)."""
+    for m in net.modules():
         with torch.no_grad():
-            nn.init.trunc_normal_(lin.weight, std=sd, a=-2.0 * sd, b=2.0 * sd, generator=generator)
-            lin.bias.zero_()
+            if isinstance(m, (nn.Linear, nn.Conv1d)):
+                fan_in = m.weight[0].numel()
+                # 0.8796... is the std of a unit normal truncated to [-2, 2]
+                # (jax.nn.initializers.variance_scaling, "truncated_normal")
+                sd = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, std=sd, a=-2.0 * sd, b=2.0 * sd, generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
     return net
 
 

@@ -173,6 +173,12 @@ def apply_overrides(cfg: dict, overrides=()):
 COMPOSED = {
     ("exp=motion_tracking", "robot=g1_23dof", "obs=motion_tracking", "rewards=motion_tracking",
      "domain_rand=main", "simulator=tpu"): "motion_tracking_g1_23dof",
+    # KungfuBot2 teacher and student (README's general_tracking commands), with
+    # the robot groups the committed `artifacts/kb2_*` runs were composed from
+    **{("exp=general_tracking", f"robot={robot}", f"obs=general_tracking_{role}", "rewards=general_tracking",
+        "domain_rand=main", "simulator=tpu"): f"general_tracking_{role}_{name}"
+       for robot, name in (("g1_23dof_student", "g1_23dof"), ("g1_29dof", "g1_29dof"))
+       for role in ("teacher", "student")},
 }
 
 # top-level keys that are overrides, not group selections (`loader.py:189-200`),

@@ -77,6 +77,17 @@ class EnvState:
     last_episode_length: torch.Tensor  # [N]
 
 
+def obs_width(obs_cfg, group) -> int:
+    """Width of obs group `group` under an obs config (`tracking_env.py:1399`)."""
+    d = 0
+    for name in obs_cfg.obs_dict[group]:
+        if name in obs_cfg.obs_auxiliary:
+            d += sum(int(obs_cfg.obs_dims[k]) * int(n) for k, n in obs_cfg.obs_auxiliary[name].items())
+        else:
+            d += int(obs_cfg.obs_dims[name])
+    return d
+
+
 def _not_ported(what, item):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
 
@@ -882,13 +893,7 @@ class MotionTrackingEnv:
 
     def obs_dim(self, group):
         """Static obs width per group (`tracking_env.py:1399`)."""
-        d = 0
-        for name in self.config.obs.obs_dict[group]:
-            if name in self.history_spec:
-                d += sum(self.obs_dims[k] * n for k, n in self.history_spec[name].items())
-            else:
-                d += self.obs_dims[name]
-        return d
+        return obs_width(self.config.obs, group)
 
     # ------------------------------------------------------------------- logs
     def _build_log(self, term, reset_buf, rew_vec, errors, state):

@@ -19,12 +19,16 @@ import time
 import torch
 
 from pbhc_tpu_torch.agents.convert import from_flax
+from pbhc_tpu_torch.agents.mimic_networks import MimicActorCritic, mimic_net_from_config
 from pbhc_tpu_torch.agents.networks import actor_from_config
 from pbhc_tpu_torch.config.loader import Cfg, apply_overrides, snapshot_for_checkpoint
+from pbhc_tpu_torch.envs.general_tracking_env import GeneralTrackingEnv
 from pbhc_tpu_torch.envs.tracking_env import MotionTrackingEnv
 from pbhc_tpu_torch.utils.checkpoint import load_checkpoint_payload
 
 ENV_TARGET = "pbhc_tpu.envs.tracking_env.MotionTrackingEnv"
+GENERAL_ENV_TARGET = "pbhc_tpu.envs.general_tracking_env.GeneralTrackingEnv"
+ENVS = {ENV_TARGET: MotionTrackingEnv, GENERAL_ENV_TARGET: GeneralTrackingEnv}
 
 
 def set_precision():
@@ -34,19 +38,31 @@ def set_precision():
 
 
 def load(ckpt_path, num_envs, overrides=(), device="cuda", seed=0):
-    """(env, actor, cfg) for the run that wrote `ckpt_path` (`batch_eval.py:24`)."""
+    """(env, actor, cfg) for the run that wrote `ckpt_path` (`batch_eval.py:24`):
+    a `MotionTrackingEnv` and `GaussianActor` for an MHPPO run, a
+    `GeneralTrackingEnv` and `MimicActorCritic` for a PPOMimic one."""
     set_precision()
     cfg = snapshot_for_checkpoint(ckpt_path)
     cfg["num_envs"] = num_envs
     cfg = Cfg.wrap(apply_overrides(cfg, overrides))
-    if cfg.env.target != ENV_TARGET:
-        raise NotImplementedError(f"env {cfg.env.target} is not ported (ROADMAP queue 1 item 11)")
-    env = MotionTrackingEnv(cfg, num_envs, device=device, seed=seed)
+    if cfg.env.target not in ENVS:
+        raise NotImplementedError(f"env {cfg.env.target} is not ported")
+    env = ENVS[cfg.env.target](cfg, num_envs, device=device, seed=seed)
     payload = load_checkpoint_payload(ckpt_path)
-    params = payload.get("actor_params") or payload.get("params")
-    actor = actor_from_config(cfg, env.obs_dim("actor_obs"), env.num_actions)
-    actor = from_flax(params, actor).to(env.device).eval()
-    return env, actor, cfg
+    if cfg.env.target == GENERAL_ENV_TARGET:
+        actor = from_flax(payload["params"], mimic_net_from_config(cfg, env.num_actions))
+    else:
+        params = payload.get("actor_params") or payload.get("params")
+        actor = from_flax(params, actor_from_config(cfg, env.obs_dim("actor_obs"), env.num_actions))
+    return env, actor.to(env.device).eval(), cfg
+
+
+def act_mean(actor, obs):
+    """The deterministic action of a loaded actor (`batch_eval.py:66-81`): a
+    `MimicActorCritic` acts through its history latent."""
+    if isinstance(actor, MimicActorCritic):
+        return actor.act(obs, True)[0]
+    return actor(obs["actor_obs"])[0]
 
 
 def start_episodes(env):
@@ -67,8 +83,7 @@ def rollout_ratio(env, actor, state, obs, num_steps):
     nonfinite = torch.zeros((), dtype=torch.int64, device=env.device)
     with torch.no_grad():
         for i in range(num_steps):
-            mean, _ = actor(obs["actor_obs"])
-            state, obs, _, done, info = env.step(state, mean)
+            state, obs, _, done, info = env.step(state, act_mean(actor, obs))
             failed = done & ~info["time_outs"]
             first = torch.where((first == num_steps) & failed, i, first)
             nonfinite = nonfinite + info["nonfinite"].sum()

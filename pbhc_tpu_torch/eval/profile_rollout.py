@@ -1,13 +1,14 @@
 """Where the serving rollout's time goes on the card.
 
-Builds the side-kick env and actor as `batch_eval.episode_ratio` does, steps
+Builds the env and actor of a checkpoint (default: the side-kick run's) as
+`batch_eval.episode_ratio` does, steps
 the rollout `warmup` times, then traces `steps` control steps with
 `torch.profiler` and prints one JSON line: host wall time per control step
 (synchronised), device-busy time per step (sum of the CUDA kernels' times on
 the one stream), the busy share, CUDA kernels launched per step, the contact
 kernels' device time per step, and the top ops by device time.
 
-    python -m pbhc_tpu_torch.eval.profile_rollout [num_envs=4096] [steps=5] [warmup=3]
+    python -m pbhc_tpu_torch.eval.profile_rollout [num_envs=4096] [steps=5] [warmup=3] [checkpoint=<pkl>]
 
 Needs a CUDA card; it does not fall back to the CPU.
 """
@@ -25,20 +26,20 @@ from pbhc_tpu_torch.eval import batch_eval
 CKPT = "artifacts/kb1_side_kick/ckpt/model_10500.pkl"
 
 
-def profile_rollout(num_envs=4096, steps=5, warmup=3):
+def profile_rollout(num_envs=4096, steps=5, warmup=3, checkpoint=CKPT):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_rollout measures the card: no CUDA device visible")
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda:0")
-    env, actor, _ = batch_eval.load(CKPT, num_envs, device=dev)
+    env, actor, _ = batch_eval.load(checkpoint, num_envs, device=dev)
     state, obs = batch_eval.start_episodes(env)
 
     def run(n):
         nonlocal state, obs
         with torch.no_grad():
             for _ in range(n):
-                state, obs, _, _, _ = env.step(state, actor(obs["actor_obs"])[0])
+                state, obs, _, _, _ = env.step(state, batch_eval.act_mean(actor, obs))
 
     run(warmup)
     torch.cuda.synchronize()
@@ -50,7 +51,7 @@ def profile_rollout(num_envs=4096, steps=5, warmup=3):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(steps)
         torch.cuda.synchronize()
-    return {"num_envs": num_envs, "steps": steps, **device_summary(prof, steps, wall_ms, "step"),
+    return {"checkpoint": str(checkpoint), "num_envs": num_envs, "steps": steps, **device_summary(prof, steps, wall_ms, "step"),
             "device": torch.cuda.get_device_name(dev)}
 
 
@@ -79,7 +80,7 @@ def device_summary(prof, n, wall_ms, unit):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    kv = {k: int(v) for k, v in (a.split("=", 1) for a in argv)}
+    kv = {k: v if k == "checkpoint" else int(v) for k, v in (a.split("=", 1) for a in argv)}
     batch_eval.set_precision()
     print(json.dumps(profile_rollout(**kv)), flush=True)
 

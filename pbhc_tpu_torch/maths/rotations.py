@@ -61,6 +61,29 @@ def quat_from_angle_axis(angle: torch.Tensor, axis: torch.Tensor) -> torch.Tenso
     return torch.cat([xyz, torch.cos(half)[..., None]], dim=-1)
 
 
+def quat_to_angle_axis(q: torch.Tensor, eps: float = 1e-5):
+    """XYZW quat -> (angle in [-pi, pi], unit axis); z for a null rotation
+    (`rotations.py:83`)."""
+    q = quat_pos(q)
+    sin_half = torch.linalg.vector_norm(q[..., :3], dim=-1)
+    angle = 2.0 * torch.atan2(sin_half, q[..., 3])
+    safe = sin_half > eps
+    axis = torch.where(safe[..., None], q[..., :3] / torch.clamp(sin_half, min=eps)[..., None],
+                       _unit_axis(q, 2))
+    return torch.where(safe, angle, 0.0), axis
+
+
+def get_euler_xyz(q: torch.Tensor) -> torch.Tensor:
+    """XYZW quat -> stacked (roll, pitch, yaw) (`rotations.py:177`)."""
+    qx, qy, qz, qw = q.unbind(-1)
+    roll = torch.atan2(2.0 * (qw * qx + qy * qz), qw * qw - qx * qx - qy * qy + qz * qz)
+    sinp = 2.0 * (qw * qy - qz * qx)
+    pitch = torch.where(torch.abs(sinp) >= 1, torch.sign(sinp) * torch.pi / 2.0,
+                        torch.asin(torch.clamp(sinp, -1, 1)))
+    yaw = torch.atan2(2.0 * (qw * qz + qx * qy), qw * qw + qx * qx - qy * qy - qz * qz)
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
 def exp_map_to_quat(e: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Axis-angle vector -> XYZW quat, Taylor-safe near zero (`rotations.py:103`)."""
     angle = torch.linalg.vector_norm(e, dim=-1, keepdim=True)

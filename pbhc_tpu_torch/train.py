@@ -1,65 +1,159 @@
 """Training CLI (counterpart of `pbhc_tpu/train.py`).
 
-Usage (the selections of `bench.py`; the port has a config snapshot for them):
+Usage (selection sets with a config snapshot, `config/loader.py::COMPOSED`):
+    # KungfuBot v1 (MHPPO on MotionTrackingEnv)
     python -m pbhc_tpu_torch.train exp=motion_tracking robot=g1_23dof \\
         obs=motion_tracking rewards=motion_tracking domain_rand=main simulator=tpu \\
         num_envs=4096 robot.motion.motion_file=assets/motions/Horse-stance_punch.pkl \\
         algo.config.num_learning_iterations=<n> [simulator.config.solver=pallas] [device=cpu]
+    # KungfuBot2 teacher (PPOMimic on GeneralTrackingEnv; robot=g1_29dof for 29 DoF)
+    python -m pbhc_tpu_torch.train exp=general_tracking robot=g1_23dof_student \\
+        obs=general_tracking_teacher rewards=general_tracking domain_rand=main simulator=tpu \\
+        num_envs=2048 robot.motion.motion_file=assets/motions/g1_ue_walk_23dof.pkl
+    # KungfuBot2 student, distilled from a teacher checkpoint
+    python -m pbhc_tpu_torch.train exp=general_tracking robot=g1_23dof_student \\
+        obs=general_tracking_student ... \\
+        algo.config.teacher_model_path=<teacher model_<it>.pkl> algo.config.dagger_only=true
 
 It runs on the first CUDA card unless `device=` names another device. It
 writes a run directory `<base_dir>/<project_name>/<time>-<experiment>-<task>/`
 holding the composed config as `config.json` (which the port's evaluation
-reads) and as `config.yaml` (which `pbhc_tpu`'s evaluation reads), and the
-checkpoints as `ckpt/model_<it>.pkl` (flax-layout params, which `pbhc_tpu`
-loads too), saved every `save_interval` iterations and at the end, and
-prints the JAX CLI's log line with window-based fps, plus the rollout and
-update seconds of the logged iteration.
+reads) and as `config.yaml` (which `pbhc_tpu`'s evaluation reads), the
+console output tee'd into `train.log`, the logged scalars as JSON lines in
+`scalars.jsonl` (the keys the JAX CLI sends to TensorBoard), and the
+checkpoints `ckpt/model_<it>.pkl` (flax-layout params, which `pbhc_tpu`
+loads too, plus the optimizer state), saved every `save_interval`
+iterations and at the end, each with a params-only mirror in
+`<artifact_dir>/<experiment>/ckpt/` (default `artifacts/`, under pytest a
+temporary directory), of which the newest 2 are kept.
 
-Not ported yet (ROADMAP queue 1 item 9): resume from a checkpoint (with or
-without optimizer state), teacher loading, TensorBoard, wandb, the watchdog
-and multi-device training.
+Resume: `checkpoint=<model_<it>.pkl>` restores params, optimizer state, lr
+and iteration (`algo.config.load_optimizer=false`, or a params-only pickle,
+starts a fresh optimizer); `auto_load_latest=true` picks the newest
+checkpoint of this experiment under `<base_dir>/<project_name>`, else the
+newest mirror; `total_iterations=<n>` runs up to iteration n in all.
+
+Not ported: TensorBoard, wandb, the hung-device watchdog (a remote-TPU
+guard) and multi-device training.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import torch
 
 from pbhc_tpu_torch.agents.mh_ppo import MHPPO
-from pbhc_tpu_torch.config.loader import compose, parse_cli, to_yaml
-from pbhc_tpu_torch.envs.tracking_env import MotionTrackingEnv
-from pbhc_tpu_torch.eval.batch_eval import ENV_TARGET, set_precision
-from pbhc_tpu_torch.utils.checkpoint import save_checkpoint
+from pbhc_tpu_torch.agents.ppo_mimic import PPOMimic, add_teacher_obs_groups, load_teacher
+from pbhc_tpu_torch.config.loader import compose, parse_cli, snapshot_for_checkpoint, to_yaml
+from pbhc_tpu_torch.eval.batch_eval import ENV_TARGET, ENVS, GENERAL_ENV_TARGET, set_precision
+from pbhc_tpu_torch.utils.checkpoint import (latest_checkpoint, load_checkpoint_payload,
+                                             restore_train_state, save_artifact, save_checkpoint)
 
 ALGO_TARGET = "pbhc_tpu.agents.mh_ppo.MHPPO"
+MIMIC_ALGO_TARGET = "pbhc_tpu.agents.ppo_mimic.PPOMimic"
+ALGOS = {(ENV_TARGET, ALGO_TARGET): MHPPO, (GENERAL_ENV_TARGET, MIMIC_ALGO_TARGET): PPOMimic}
+REPO = Path(__file__).resolve().parent.parent
+
+
+def load_teacher_config(ckpt_path):
+    """The teacher run's config (`pbhc_tpu/train.py:307`): its run directory's
+    `config.json`, else the committed snapshot named after it."""
+    return snapshot_for_checkpoint(ckpt_path)
 
 
 def build(cfg):
     """(env, algo, train state) for a composed config, on `cfg.device`
-    (default cuda), in float32 with TF32 off."""
+    (default cuda), in float32 with TF32 off. A distillation config gains the
+    teacher's obs groups (in place) and its frozen teacher."""
     set_precision()
-    if cfg.env.target != ENV_TARGET or cfg.algo.target != ALGO_TARGET:
-        raise NotImplementedError(f"{cfg.env.target} with {cfg.algo.target} is not ported "
-                                  "(ROADMAP queue 1 item 11)")
-    for key, what in (("checkpoint", "resume from a checkpoint"),
-                      ("auto_load_latest", "resume from a checkpoint"),
-                      ("use_wandb", "wandb logging")):
-        if cfg.get(key):
-            raise NotImplementedError(f"{key}: {what} is not ported yet (ROADMAP queue 1 item 9)")
-    if cfg.algo.config.get("teacher_model_path"):
-        raise NotImplementedError("teacher loading is ROADMAP queue 1 item 11")
-    seed = int(cfg.seed)
-    env = MotionTrackingEnv(cfg, int(cfg.num_envs), device=cfg.get("device", "cuda"), seed=seed)
-    algo = MHPPO(cfg, env, seed=seed)
+    algo_cls = ALGOS.get((cfg.env.target, cfg.algo.target))
+    if algo_cls is None:
+        raise NotImplementedError(f"{cfg.env.target} with {cfg.algo.target} is not ported")
+    if cfg.get("use_wandb"):
+        raise NotImplementedError("use_wandb: wandb logging is not ported")
+    seed, device = int(cfg.seed), cfg.get("device", "cuda")
+    teacher_path = cfg.algo.config.get("teacher_model_path")
+    if teacher_path and algo_cls is not PPOMimic:
+        raise ValueError("teacher_model_path is a PPOMimic option")
+    teacher_cfg = load_teacher_config(teacher_path) if teacher_path else None
+    if teacher_cfg is not None:
+        add_teacher_obs_groups(cfg, teacher_cfg)
+    env = ENVS[cfg.env.target](cfg, int(cfg.num_envs), device=device, seed=seed)
+    if algo_cls is MHPPO:
+        algo = MHPPO(cfg, env, seed=seed)
+    else:
+        teacher = load_teacher(teacher_path, teacher_cfg, env) if teacher_path else None
+        algo = PPOMimic(cfg, env, teacher=teacher, seed=seed)
     return env, algo, algo.init_train_state()
+
+
+def resolve_artifact_dir(cfg) -> Path:
+    """Where the run's params-only mirror goes (`pbhc_tpu/train.py:373`):
+    `<artifact_dir>/<experiment>`; without `artifact_dir`, `artifacts/` of
+    the source tree, or under pytest a temporary directory."""
+    if cfg.get("artifact_dir"):
+        base = Path(cfg.artifact_dir)
+    elif os.environ.get("PYTEST_CURRENT_TEST"):
+        base = Path(tempfile.gettempdir()) / "pbhc_pytest_artifacts"
+    else:
+        base = REPO / "artifacts"
+    return base / str(cfg.experiment_name)
+
+
+class _Tee:
+    """Write to a stream and a logfile (`pbhc_tpu/train.py:83`)."""
+
+    def __init__(self, stream, f):
+        self._stream, self._f = stream, f
+
+    def write(self, s):
+        self._stream.write(s)
+        self._f.write(s)
+        return len(s)
+
+    def flush(self):
+        self._stream.flush()
+        self._f.flush()
+
+    def __getattr__(self, name):
+        return getattr(self._stream, name)
+
+
+@contextlib.contextmanager
+def _tee(path):
+    """stdout and stderr also into `path` while the block runs."""
+    out, err = sys.stdout, sys.stderr
+    with open(path, "a", buffering=1) as f:
+        sys.stdout, sys.stderr = _Tee(out, f), _Tee(err, f)
+        try:
+            yield
+        finally:
+            sys.stdout, sys.stderr = out, err
 
 
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _resume(cfg, algo, ts, art_dir):
+    ckpt_path = cfg.get("checkpoint")
+    if not ckpt_path and cfg.get("auto_load_latest"):
+        ckpt_path = (latest_checkpoint(Path(cfg.base_dir) / cfg.project_name, str(cfg.experiment_name))
+                     or latest_checkpoint(art_dir))
+        if ckpt_path:
+            print(f"[train] auto_load_latest -> {ckpt_path}")
+    if ckpt_path:
+        payload = load_checkpoint_payload(ckpt_path)
+        restore_train_state(ts, payload, bool(cfg.algo.config.get("load_optimizer", True)))
+        print(f"[train] resumed from {ckpt_path} at iteration {ts.iteration}")
+    return ts
 
 
 def main(argv=None):
@@ -73,59 +167,78 @@ def main(argv=None):
     exp_dir = (Path(cfg.base_dir) / cfg.project_name
                / f"{timestamp}-{cfg.experiment_name}-{cfg.get('log_task_name', 'task')}")
     exp_dir.mkdir(parents=True, exist_ok=True)
-    (exp_dir / "config.json").write_text(json.dumps(cfg, indent=1))
-    (exp_dir / "config.yaml").write_text(to_yaml(cfg))
-    print(f"[train] experiment dir: {exp_dir}")
+    config_json, config_yaml = json.dumps(cfg, indent=1), to_yaml(cfg)
+    (exp_dir / "config.json").write_text(config_json)
+    (exp_dir / "config.yaml").write_text(config_yaml)
+    with _tee(exp_dir / "train.log"):
+        return _run(cfg, exp_dir, config_json, config_yaml)
 
+
+def _run(cfg, exp_dir, config_json, config_yaml):
+    print(f"[train] experiment dir: {exp_dir}")
     env, algo, ts = build(cfg)
     dev = env.device
     print(f"[train] device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else dev}")
+    art_dir = resolve_artifact_dir(cfg)
+    (art_dir / "ckpt").mkdir(parents=True, exist_ok=True)
+    (art_dir / "config.json").write_text(config_json)
+    (art_dir / "config.yaml").write_text(config_yaml)
+    ts = _resume(cfg, algo, ts, art_dir)
 
     num_iters = int(cfg.algo.config.num_learning_iterations)
-    if cfg.get("total_iterations"):   # cumulative target; without resume it starts at 0
+    if cfg.get("total_iterations"):   # cumulative across resumes
         num_iters = max(0, int(cfg.total_iterations) - ts.iteration)
+        print(f"[train] total_iterations={cfg.total_iterations}: {num_iters} remaining")
     save_interval = int(cfg.algo.config.save_interval)
     log_interval = max(1, int(cfg.algo.config.get("logging_interval", 25)) // 5)
     steps_per_iter = env.num_envs * algo.num_steps
     ckpt_dir = exp_dir / "ckpt"
     logs = []
 
+    def save():
+        print(f"[train] saved {save_checkpoint(ckpt_dir, ts)}")
+        save_artifact(art_dir, ts)
+
     t_start = time.time()
     last_log_t, last_log_it = t_start, 0
-    for it in range(num_iters):
-        t0 = time.time()
-        if it == 2:
-            # as the JAX CLI does: iterations 0 and 1 (there: compiles; here:
-            # kernel builds and library warm-up) stay out of the fps windows
-            last_log_t, last_log_it = t0, 2
-        log_now = (it + 1) % log_interval == 0 or it == 0
-        rollout = algo.rollout(ts)
-        if log_now:
-            # rollout seconds: from the iteration's start on the host to the
-            # rollout's end on the device (earlier unsynchronised iterations'
-            # device work included)
-            _sync(dev)
-            t_mid = time.time()
-        ts, log = algo.learn(ts, rollout)
-        if it == 0:
-            _sync(dev)
-            print(f"[train] first iteration (incl. kernel builds): {time.time() - t0:.1f}s")
-        if log_now:
-            log = {k: float(v) for k, v in log.items()}      # waits for the whole window
-            now = time.time()
-            window_iters = 1 if it == 0 else (it + 1 - last_log_it)
-            fps = steps_per_iter * window_iters / (now - last_log_t)
-            last_log_t, last_log_it = now, it + 1
-            logs.append(dict(log, iteration=it + 1, fps=fps, rollout_s=t_mid - t0, update_s=now - t_mid))
-            print(f"[it {it + 1}/{num_iters}] rew/step={log['Train/mean_step_reward']:.4f} "
-                  f"epl={log['Env/episode_length_mean']:.1f} kl={log['Loss/kl']:.4f} "
-                  f"lr={log['Loss/lr']:.2e} fps={fps:,.0f} "
-                  f"rollout/update={t_mid - t0:.2f}/{now - t_mid:.2f}s", flush=True)
-        if (it + 1) % save_interval == 0 and it + 1 < num_iters:
-            print(f"[train] saved {save_checkpoint(ckpt_dir, ts)}")
+    with open(exp_dir / "scalars.jsonl", "a") as scalars:
+        for it in range(num_iters):
+            t0 = time.time()
+            if it == 2:
+                # as the JAX CLI does: iterations 0 and 1 (there: compiles; here:
+                # kernel builds and library warm-up) stay out of the fps windows
+                last_log_t, last_log_it = t0, 2
+            log_now = (it + 1) % log_interval == 0 or it == 0
+            rollout = algo.rollout(ts)
+            if log_now:
+                # rollout seconds: from the iteration's start on the host to the
+                # rollout's end on the device (earlier unsynchronised iterations'
+                # device work included)
+                _sync(dev)
+                t_mid = time.time()
+            ts, log = algo.learn(ts, rollout)
+            if it == 0:
+                _sync(dev)
+                print(f"[train] first iteration (incl. kernel builds): {time.time() - t0:.1f}s")
+            if log_now:
+                log = {k: float(v) for k, v in log.items()}      # waits for the whole window
+                now = time.time()
+                window_iters = 1 if it == 0 else (it + 1 - last_log_it)
+                fps = steps_per_iter * window_iters / (now - last_log_t)
+                last_log_t, last_log_it = now, it + 1
+                logs.append(dict(log, iteration=ts.iteration, fps=fps, rollout_s=t_mid - t0,
+                                 update_s=now - t_mid))
+                scalars.write(json.dumps({"iteration": ts.iteration, **log, "Perf/total_fps": fps}) + "\n")
+                scalars.flush()
+                print(f"[it {it + 1}/{num_iters}] rew/step={log['Train/mean_step_reward']:.4f} "
+                      f"epl={log['Env/episode_length_mean']:.1f} kl={log['Loss/kl']:.4f} "
+                      f"lr={log['Loss/lr']:.2e} fps={fps:,.0f} "
+                      f"rollout/update={t_mid - t0:.2f}/{now - t_mid:.2f}s", flush=True)
+            if (it + 1) % save_interval == 0 and it + 1 < num_iters:
+                save()
     _sync(dev)
     print(f"[train] done in {time.time() - t_start:.0f}s")
-    print(f"[train] saved {save_checkpoint(ckpt_dir, ts)}")
+    save()
     return algo, ts, logs
 
 

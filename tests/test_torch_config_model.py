@@ -92,3 +92,22 @@ def test_g1_motion_model_equal():
     ext = [dict(e) for e in cfg.robot.motion.extend_config]
     assert_models_equal(jg1.load_g1_motion_model("g1_23dof_lock_wrist", ext),
                         tg1.load_g1_motion_model("g1_23dof_lock_wrist", ext))
+
+
+KB2_SELECTIONS = [sels for sels in tl.COMPOSED if "exp=general_tracking" in sels]
+KB2_OVERRIDES = [[], ["num_envs=2048", "robot.motion.motion_file=assets/motions/g1_ue_walk_23dof.pkl",
+                      "algo.config.num_learning_iterations=2", "algo.config.teacher_model_path=t.pkl",
+                      "algo.config.dagger_only=true", "seed=1", "checkpoint=x/model_2.pkl",
+                      "total_iterations=3"]]
+
+
+@pytest.mark.parametrize("ovs", KB2_OVERRIDES, ids=lambda o: str(len(o)))
+@pytest.mark.parametrize("sels", KB2_SELECTIONS, ids=lambda s: f"{s[1]}-{s[2]}")
+def test_kb2_composed_snapshot_equals_jax_compose(sels, ovs):
+    """The KungfuBot2 teacher/student selection sets (23 and 29 DoF) with the
+    overrides of the port's KungfuBot2 commands, against the JAX `compose`."""
+    from pbhc_tpu.config.loader import compose as jax_compose
+
+    assert len(KB2_SELECTIONS) == 4
+    want = json.loads(json.dumps(jax_compose(str(REPO / "pbhc_tpu" / "config"), list(sels), ovs)))
+    assert json.loads(json.dumps(tl.compose(sels, ovs))) == want

@@ -7,6 +7,11 @@ Without a card every test here skips.
 
 Tolerance atol 1e-4 (the repo's kernel-parity bound): the kernel and the plain
 version sum the matvecs in different orders and the kernel fuses multiply-adds.
+The KungfuBot2 networks (Conv1d through cuDNN, the flax-numerics LayerNorm,
+the MLPs) on the card against the CPU, TF32 off for matmul and cuDNN: 1e-5
+per unit of each output's largest magnitude (the two devices sum products in
+different orders; tests/test_torch_mimic.py holds the CPU to flax the same
+way).
 """
 import numpy as np
 import pytest
@@ -21,7 +26,9 @@ ATOL = 1e-4
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from pbhc_tpu_torch.eval.batch_eval import set_precision
+
+    set_precision()
     return torch.device("cuda")
 
 
@@ -128,3 +135,75 @@ def test_every_tile_matches_plain(cuda_device, R, N):
                                            err_msg=f"{name} E={E} P={P}")
         assert ck.tile(name, R) in taken and len(taken) >= 6
         assert getattr(ck, name).launches == before
+
+
+def _kb2_env(run, n, device, seed=0):
+    from pbhc_tpu_torch.config.loader import Cfg, apply_overrides, load_snapshot
+    from pbhc_tpu_torch.envs.general_tracking_env import GeneralTrackingEnv
+
+    motion = ["robot.motion.motion_file=assets/motions/g1_ue_walk_23dof.pkl"] if "23" in run else []
+    return GeneralTrackingEnv(Cfg.wrap(apply_overrides(load_snapshot(run), motion)), n, device=device, seed=seed)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_29dof_contacts(cuda_device):
+    """Kernel 1 on the contact problems of a lanes control step of the 29-DoF
+    KungfuBot2 teacher config at its 2048 envs (R = 12), after 10 steps
+    holding the default pose from clip start."""
+    env = _kb2_env("kb2_teacher29_r5", 2048, cuda_device)
+    state = env.reset_to_start(env.init_state())
+    obs, state.history = env.compute_observations(state)
+    zero = torch.zeros((2048, env.num_actions), device=cuda_device)
+    with torch.no_grad():
+        for _ in range(10):
+            state, obs, _, _, _ = env.step(state, zero)
+    seen = []
+    lanes = env.lanes_engine
+
+    def record(A, b, mu, active, x0, iters):
+        seen.append((A.clone(), b.clone(), mu.clone(), active.clone(), x0.clone(), iters))
+        return ck.apgd_lanes(A, b, mu, active, x0, iters)
+
+    lanes.contact_solve = record
+    with torch.no_grad():
+        env.step(state, zero)
+    lanes.contact_solve = ck.apgd_lanes
+    assert len(seen) == env.decimation
+    for A, b, mu, active, x0, iters in seen:
+        assert A.shape == (36, 36, 2048) and iters == 16
+        assert float(active.sum(0).gt(0).float().mean()) > 0.5       # most envs in contact
+        out = ck.apgd_lanes(A, b, mu, active, x0, iters)
+        ref = ck.apgd_lanes_plain(A, b, mu, active, x0, iters)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_mimic_networks_on_card_match_cpu(cuda_device):
+    """The committed 23-DoF teacher's `MimicActorCritic` (Conv1d encoders,
+    LayerNorms, MLPs) on the card and on the CPU, on the serving path's
+    observations (64 envs, 3 control steps on the CPU)."""
+    from pbhc_tpu_torch.agents.convert import from_flax
+    from pbhc_tpu_torch.agents.mimic_networks import mimic_net_from_config
+    from pbhc_tpu_torch.utils.checkpoint import load_checkpoint_payload
+
+    env = _kb2_env("kb2_teacher23_r3", 64, "cpu")
+    params = load_checkpoint_payload("artifacts/kb2_teacher23_r3/ckpt/model_24000.pkl")["params"]
+    cpu = from_flax(params, mimic_net_from_config(env.config, env.num_actions)).eval()
+    card = from_flax(params, mimic_net_from_config(env.config, env.num_actions)).to(cuda_device).eval()
+    state = env.reset_to_start(env.init_state())
+    obs, state.history = env.compute_observations(state)
+    with torch.no_grad():
+        for _ in range(3):
+            state, obs, _, _, _ = env.step(state, cpu.act(obs, True)[0])
+        gobs = {k: v.to(cuda_device) for k, v in obs.items()}
+        pairs = [(cpu.act(obs, h)[0], card.act(gobs, h)[0]) for h in (False, True)]
+        pairs += [(cpu.evaluate(obs), card.evaluate(gobs)),
+                  (cpu.priv_latent(obs["priv_obs"]), card.priv_latent(gobs["priv_obs"])),
+                  (cpu.hist_latent(obs["prop_history"]), card.hist_latent(gobs["prop_history"]))]
+        x = torch.cat([obs["actor_obs"], cpu.actor.motion_encoder(obs["future_motion_targets"]),
+                       cpu.hist_latent(obs["prop_history"])], dim=-1)          # the backbone's LayerNorm input
+        pairs.append((cpu.actor.ln(x), card.actor.ln(x.to(cuda_device))))
+    for want, got in pairs:
+        want = want.numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), want, atol=1e-5 * max(1.0, np.abs(want).max()))

@@ -4,8 +4,11 @@ The machine with the card has no JAX, PyYAML, joblib, lxml, MuJoCo or
 TensorBoard. A subprocess that blocks those modules (and `pbhc_tpu`) imports
 every module of `pbhc_tpu_torch` and `chip_smoke`, builds the side-kick env
 and actor on the CPU at 128 envs from the config snapshot and the checkpoint,
-drives a few control steps of the serving loop, and runs the training CLI
-(`python -m pbhc_tpu_torch.train`) for one iteration at 128 envs.
+drives a few control steps of the serving loop, does the same for the
+KungfuBot2 teacher (`GeneralTrackingEnv`, `MimicActorCritic`) at 32 envs,
+and runs the training CLI (`python -m pbhc_tpu_torch.train`) for one
+iteration: MHPPO at 128 envs, and a KungfuBot2 student distilled from the
+committed teacher (its config read from the snapshot) at 32 envs.
 """
 import ast
 import subprocess
@@ -43,11 +46,24 @@ SCRIPT = textwrap.dedent("""
     assert obs["actor_obs"].shape == (128, 380), obs["actor_obs"].shape
     assert int(state.episode_length.min()) == 3 and int(nonfinite) == 0
     assert torch.isfinite(state.sim.dof_pos).all() and torch.isfinite(state.sim.root_pos).all()
+    env, actor, cfg = batch_eval.load("artifacts/kb2_teacher23_r3/ckpt/model_24000.pkl", 32, device="cpu")
+    state, obs = batch_eval.start_episodes(env)
+    state, first, nonfinite = batch_eval.rollout_ratio(env, actor, state, obs, 3)
+    assert obs["future_motion_targets"].shape == (32, 1140) and int(nonfinite) == 0
     import runpy
     sys.argv = ["pbhc_tpu_torch.train", "exp=motion_tracking", "robot=g1_23dof", "obs=motion_tracking",
                 "rewards=motion_tracking", "domain_rand=main", "simulator=tpu", "num_envs=128",
                 "robot.motion.motion_file=assets/motions/Horse-stance_punch.pkl",
-                "algo.config.num_learning_iterations=1", "device=cpu", "base_dir={base_dir}"]
+                "algo.config.num_learning_iterations=1", "device=cpu", "base_dir={base_dir}",
+                "artifact_dir={base_dir}/art"]
+    runpy.run_module("pbhc_tpu_torch.train", run_name="__main__")
+    sys.argv = ["pbhc_tpu_torch.train", "exp=general_tracking", "robot=g1_23dof_student",
+                "obs=general_tracking_student", "rewards=general_tracking", "domain_rand=main",
+                "simulator=tpu", "num_envs=32", "robot.motion.motion_file=assets/motions/g1_ue_walk_23dof.pkl",
+                "algo.config.teacher_model_path=artifacts/kb2_teacher23_r3/ckpt/model_24000.pkl",
+                "algo.config.dagger_only=true", "algo.config.num_steps_per_env=4",
+                "algo.config.num_learning_iterations=1", "device=cpu", "base_dir={base_dir}",
+                "artifact_dir={base_dir}/art", "experiment_name=student"]
     runpy.run_module("pbhc_tpu_torch.train", run_name="__main__")
     leaked = [n for n, m in sys.modules.items() if n.split(".")[0] in BLOCKED and m is not None]
     assert not leaked, leaked
@@ -61,7 +77,7 @@ def test_port_runs_without_jax_yaml_joblib_lxml(tmp_path):
                          timeout=600)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "ISOLATION OK" in out.stdout
-    assert "[it 1/1]" in out.stdout and list(tmp_path.glob("PBHC_TPU/*/ckpt/model_1.pkl"))
+    assert out.stdout.count("[it 1/1]") == 2 and len(list(tmp_path.glob("PBHC_TPU/*/ckpt/model_1.pkl"))) == 2
 
 
 def _imported_roots(path):

@@ -37,7 +37,7 @@ def _inputs(rng):
         "matrix_to_quat": (np.asarray(jr.quat_to_matrix(jnp.asarray(q))),),
         "exp_map_to_quat": (np.concatenate([v, 1e-6 * v[:8]]),),
         "quat_from_angle_axis": (v[:, 0], rng.normal(size=(n, 3)).astype(np.float32)),
-        "calc_heading": (q,), "calc_heading_quat_inv": (q,),
+        "calc_heading": (q,), "calc_heading_quat_inv": (q,), "get_euler_xyz": (q,),
         "slerp": (q, q2, rng.uniform(size=(n, 1)).astype(np.float32)),
         "normalize": (v,),
     }
