@@ -17,7 +17,14 @@ holds every CUDA kernel they launch against its plain PyTorch version:
 - KungfuBot2 training: the training CLI on the 23-DoF teacher selection set
   (PPOMimic, RL + DAgger) and the student selection set distilled from the
   committed teacher, 2048 envs, random weights from seed 0 (kernel 1), and
-  a resume of the teacher run from its checkpoint.
+  a resume of the teacher run from its checkpoint;
+- terrain serving: `episode_ratio` on the committed heightfield-terrain run
+  `terrain_walk_v3` at its 4096 envs over the whole clip (kernel 1);
+- terrain training: the training CLI on the v1 selection set with
+  `terrain=locomotion` at 4096 envs, once per solver (kernels 1 and 2);
+- evaluation: `pbhc_tpu_torch.eval_agent.main`, the evaluation CLI, on a copy
+  of the side-kick run under `build/chip_smoke/` (the deploy export, the
+  deterministic rollout with randomness off, the metric families; kernel 1).
 Phases, each announced when it starts and when it ends:
 
   build            - compile both kernels from `pbhc_tpu_torch/csrc/` (nvcc, sm_90a, in parallel)
@@ -27,17 +34,24 @@ Phases, each announced when it starts and when it ends:
   substep-envfirst - one env-first control step at 4096 envs, kernel 2 vs plain solve
   substep-29dof    - one lanes control step of the 29-DoF KungfuBot2 teacher config at 2048 envs,
                      kernel 1 vs plain solve
+  substep-terrain  - one lanes control step of terrain_walk_v3 (heightfield) at 4096 envs, kernel 1
+                     vs plain solve
   serving          - the episode_ratio rollout; kernel launches counted from 0
   serving-kb2      - the KungfuBot2 teacher's episode_ratio rollout at 2048 envs; counted from 0
+  serving-terrain  - terrain_walk_v3's episode_ratio rollout at 4096 envs; counted from 0
   train-lanes      - the training CLI for 2 iterations, solver lanes; launches counted from 0
   train-pallas     - the training CLI for 2 iterations, solver pallas; launches counted from 0
   update           - one minibatch update on the card and on the CPU, same state and batch
   checkpoint       - read back the `.pkl` the train-pallas run wrote
+  train-terrain-lanes  - the training CLI with terrain=locomotion, 2 iterations, solver lanes
+  train-terrain-pallas - the same with solver pallas
   train-kb2-teacher - the training CLI, KungfuBot2 teacher, 2 iterations (RL + DAgger, then RL)
   train-kb2-student - the training CLI, KungfuBot2 student distilled from the committed teacher,
                      2 iterations; its history encoder must stay the teacher's
   update-kb2       - one PPOMimic RL minibatch update on the card and on the CPU
   resume           - the teacher run resumed from its checkpoint to 3 iterations in all
+  eval-agent       - the evaluation CLI on a copy of the side-kick run; its export against the
+                     CPU's, its completion ratio and families against the JAX package's
   report           - the `kernels` JSON line, the card line, the final result line
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
@@ -75,6 +89,19 @@ KB2_SELECTIONS = {role: ["exp=general_tracking", "robot=g1_23dof_student", f"obs
                   for role in ("teacher", "student")}
 KB2_ITERS = 2        # iteration 0 runs RL + DAgger (dagger_update_freq 20), iteration 1 RL only
 KB2_UPDATE_SAMPLES = 12288   # one PPOMimic minibatch: 24 steps x 2048 envs / 4
+TERRAIN_CKPT = "artifacts/terrain_walk_v3/ckpt/model_6500.pkl"   # heightfield run, 4096 envs
+TERRAIN_SELECTIONS = TRAIN_SELECTIONS + ["terrain=locomotion"]
+TERRAIN_ITERS = 2    # the first iteration warms up; the second is timed
+EVAL_RUN = "kb1_side_kick"
+# randomness off (the set of tests/test_torch_env.py): the eval rollout is
+# then deterministic, and its completion ratio comparable with the JAX one's
+EVAL_OFF = ["domain_rand.push_robots=false", "domain_rand.randomize_torque_rfi=false",
+            "domain_rand.use_rao=false", "domain_rand.randomize_ctrl_delay=false",
+            "domain_rand.randomize_pd_gain=false", "domain_rand.randomize_rfi_lim=false",
+            "domain_rand.randomize_link_mass=false", "domain_rand.randomize_link_inertia=false",
+            "domain_rand.randomize_base_com=false", "domain_rand.randomize_friction=false",
+            "obs.noise_scales.base_ang_vel=0", "obs.noise_scales.dof_pos=0",
+            "obs.noise_scales.dof_vel=0", "obs.noise_scales.projected_gravity=0"]
 
 # Tolerances (each stated with its reason):
 # - kernel vs plain solve: the two sum the 36-term matvecs in different
@@ -109,6 +136,32 @@ UPDATE_ATOL = 1e-5
 #   side-kick, and fails a policy or env that loses 2% more of the clip.
 KB2_JAX_RATIO = 0.9878615475772472
 KB2_RATIO_BAND = 0.02
+# - terrain serving ratio: the JAX package's own figure for terrain_walk_v3 at
+#   4096 envs on the CPU (JAX_PLATFORMS=cpu python -m pbhc_tpu.eval.batch_eval
+#   checkpoint=artifacts/terrain_walk_v3/ckpt/model_6500.pkl mode=ratio
+#   num_envs=4096, from the repository root, see PERF.md: ratio_std 0.158,
+#   so the mean's standard error is 0.0025). The port draws its randomisation
+#   from other streams; the band of 0.02 is eight times that error, as for
+#   the other serving phases.
+TERRAIN_JAX_RATIO = 0.9020365168539326
+TERRAIN_RATIO_BAND = 0.02
+# - eval-agent: the JAX package's own figures for the side-kick checkpoint
+#   with EVAL_OFF on the CPU (JAX_PLATFORMS=cpu python -m pbhc_tpu.eval_agent
+#   checkpoint=<copy of artifacts/kb1_side_kick>/ckpt/model_10500.pkl
+#   <EVAL_OFF>, see PERF.md): completion 1.0, E_mpbpe 66.35258483886719 mm,
+#   E_mpjpe 827.0711669921875. The port on the CPU gives 66.36317 and
+#   827.11987 (1.6e-4 and 5.9e-5 relative): the families average a 296-step
+#   closed-loop rollout, through which the f32 noise of the two packages
+#   (and of the card against the CPU: other summation orders, the contact
+#   kernel's 1e-4) grows, and a rollout that meets a contact event (a step
+#   not continuous in the state) parts there: the horse-stance clip's
+#   families differ by up to 0.9% between the packages on the CPU
+#   (tests/test_torch_eval.py). The band of 2% relative covers that, and a
+#   rollout that tracks worse (a foot that slips, a policy fed wrong
+#   observations) moves these families by tens of percent.
+EVAL_JAX_COMPLETION = 1.0
+EVAL_JAX_FAMILIES = {"E_mpbpe": 66.35258483886719, "E_mpjpe": 827.0711669921875}
+EVAL_REL_BAND = 0.02
 
 
 def log(msg):
@@ -216,10 +269,11 @@ def main():
     t_start = time.perf_counter()
     sys.path.insert(0, REPO)
     os.chdir(REPO)
-    from pbhc_tpu_torch import train
+    from pbhc_tpu_torch import eval_agent, train
     from pbhc_tpu_torch.agents.convert import flax_params, from_flax
     from pbhc_tpu_torch.agents.networks import actor_from_config, critic_from_config
     from pbhc_tpu_torch.config.loader import Cfg, apply_overrides, compose, load_snapshot
+    from pbhc_tpu_torch.deploy.export import export_policy
     from pbhc_tpu_torch.envs.general_tracking_env import GeneralTrackingEnv
     from pbhc_tpu_torch.envs.tracking_env import MotionTrackingEnv
     from pbhc_tpu_torch.eval import batch_eval, kernel_bench
@@ -388,44 +442,52 @@ def main():
         del cfg, env, state, obs
         torch.cuda.empty_cache()
 
-    with phase("serving"):
-        res = count("serving", lambda: batch_eval.episode_ratio(CKPT, NUM_ENVS, device=dev))
-        log("episode_ratio: " + json.dumps(res))
-        expect_launches("serving", {"apgd_lanes": 4 * res["episode_steps"], "apgd_envfirst": 0})
-        if res["nonfinite_env_steps"] != 0:
-            log(f"FAIL: {res['nonfinite_env_steps']} env-steps ended non-finite")
+    with phase("substep-terrain"):
+        # the heightfield run under its own policy: contacts on rough and
+        # obstacle tiles 29-181 m from the world origin
+        env, actor, _ = batch_eval.load(TERRAIN_CKPT, NUM_ENVS, device=dev)
+        if env.terrain is None or tuple(env.engine.terrain_hf.shape) != (1300, 2100):
+            log("FAIL: substep-terrain: the run did not install its heightfield")
             ok = False
-        if not abs(res["ratio"] - JAX_RATIO) <= RATIO_BAND:
-            log(f"FAIL: ratio {res['ratio']:.6f} outside {JAX_RATIO} +- {RATIO_BAND}")
-            ok = False
-        log(f"control_steps_per_sec {res['control_steps_per_sec']:.3f} at {NUM_ENVS} envs on {card}")
-    torch.cuda.empty_cache()
+        state, obs = batch_eval.start_episodes(env)
+        lanes_step_check(env, state, obs, lambda o: actor(o["actor_obs"])[0], ROWS)
+        del env, actor, state, obs
+        torch.cuda.empty_cache()
 
-    with phase("serving-kb2"):
-        res = count("serving-kb2", lambda: batch_eval.episode_ratio(KB2_CKPT, KB2_ENVS, device=dev))
-        log("episode_ratio (KungfuBot2 teacher): " + json.dumps(res))
-        expect_launches("serving-kb2", {"apgd_lanes": 4 * res["episode_steps"], "apgd_envfirst": 0})
-        if res["nonfinite_env_steps"] != 0:
-            log(f"FAIL: {res['nonfinite_env_steps']} env-steps ended non-finite")
-            ok = False
-        if not abs(res["ratio"] - KB2_JAX_RATIO) <= KB2_RATIO_BAND:
-            log(f"FAIL: ratio {res['ratio']:.6f} outside {KB2_JAX_RATIO} +- {KB2_RATIO_BAND}")
-            ok = False
-        log(f"serving-kb2: control_steps_per_sec {res['control_steps_per_sec']:.3f} at {KB2_ENVS} envs on {card}")
-    torch.cuda.empty_cache()
-
-    trained = {}
-    for solver, kernel in (("lanes", "apgd_lanes"), ("pallas", "apgd_envfirst")):
-        path, iters = f"train-{solver}", TRAIN_ITERS[solver]
+    def serving(path, ckpt, n, jax_ratio, band):
+        """`episode_ratio` of `ckpt` at `n` envs, its launches counted from 0."""
+        nonlocal ok
         with phase(path):
-            base = os.path.join(REPO, "build", "chip_smoke", solver)
+            res = count(path, lambda: batch_eval.episode_ratio(ckpt, n, device=dev))
+            log(f"episode_ratio ({path}): " + json.dumps(res))
+            expect_launches(path, {"apgd_lanes": 4 * res["episode_steps"], "apgd_envfirst": 0})
+            if res["nonfinite_env_steps"] != 0:
+                log(f"FAIL: {res['nonfinite_env_steps']} env-steps ended non-finite")
+                ok = False
+            if not abs(res["ratio"] - jax_ratio) <= band:
+                log(f"FAIL: ratio {res['ratio']:.6f} outside {jax_ratio} +- {band}")
+                ok = False
+            log(f"{path}: control_steps_per_sec {res['control_steps_per_sec']:.3f} at {n} envs on {card}")
+        torch.cuda.empty_cache()
+
+    serving("serving", CKPT, NUM_ENVS, JAX_RATIO, RATIO_BAND)
+    serving("serving-kb2", KB2_CKPT, KB2_ENVS, KB2_JAX_RATIO, KB2_RATIO_BAND)
+    serving("serving-terrain", TERRAIN_CKPT, NUM_ENVS, TERRAIN_JAX_RATIO, TERRAIN_RATIO_BAND)
+
+    def train_v1(path, selections, solver, iters):
+        """The training CLI on a v1 selection set at 4096 envs for `iters`
+        iterations, logging every one (logging_interval 5 -> 1); returns
+        (algo, ts, logs, final checkpoints)."""
+        nonlocal ok
+        kernel = {"lanes": "apgd_lanes", "pallas": "apgd_envfirst"}[solver]
+        other = "apgd_envfirst" if kernel == "apgd_lanes" else "apgd_lanes"
+        with phase(path):
+            base = os.path.join(REPO, "build", "chip_smoke", path)
             shutil.rmtree(base, ignore_errors=True)
-            # the training CLI, logging every iteration (logging_interval 5 -> 1)
-            argv = TRAIN_SELECTIONS + TRAIN_OVERRIDES + [
+            argv = selections + TRAIN_OVERRIDES + [
                 f"simulator.config.solver={solver}", f"algo.config.num_learning_iterations={iters}",
                 "algo.config.logging_interval=5", f"base_dir={base}", f"artifact_dir={base}/artifacts"]
             algo, ts, logs = count(path, lambda: train.main(argv))
-            other = "apgd_envfirst" if kernel == "apgd_lanes" else "apgd_lanes"
             expect_launches(path, {kernel: 96 * iters, other: 0})
             bad = sorted({k for it_log in logs for k, v in it_log.items() if v != v or abs(v) == float("inf")})
             if bad or len(logs) != iters:
@@ -441,11 +503,14 @@ def main():
                 f"kl {logs[-1]['Loss/kl']:.4f}, lr {logs[-1]['Loss/lr']:.2e}, "
                 f"value loss {logs[-1]['Loss/value']:.4f}")
             ckpts = glob.glob(os.path.join(base, "PBHC_TPU", "*", "ckpt", f"model_{iters}.pkl"))
-            trained[solver] = (algo, ts, ckpts)
         torch.cuda.empty_cache()
+        return algo, ts, logs, ckpts
+
+    trained = {solver: train_v1(f"train-{solver}", TRAIN_SELECTIONS, solver, TRAIN_ITERS[solver])
+               for solver in ("lanes", "pallas")}
 
     with phase("update"):
-        algo, ts, _ = trained["lanes"]
+        algo, ts, _, _ = trained["lanes"]
         cpu = cpu_copy(algo, ts, torch)
         # the configured initial lr, so that the step moves the weights (the
         # adaptive lr of the trained state sits at its floor of 1e-5)
@@ -468,7 +533,7 @@ def main():
 
     with phase("checkpoint"):
         # the `.pkl` the training CLI wrote at its end, read back
-        algo, ts, ckpts = trained["pallas"]
+        algo, ts, _, ckpts = trained["pallas"]
         if len(ckpts) != 1:
             raise RuntimeError(f"want one final checkpoint of train-pallas, found {ckpts}")
         payload = load_checkpoint_payload(ckpts[0])
@@ -483,6 +548,21 @@ def main():
         if not (same and payload["iteration"] == TRAIN_ITERS["pallas"]):
             log("FAIL: the checkpoint does not read back")
             ok = False
+    del trained, algo, ts
+    torch.cuda.empty_cache()
+
+    for solver in ("lanes", "pallas"):
+        # every env on a random row of the curriculum grid (terrain=locomotion
+        # has curriculum false), the hardest tiles included
+        path = f"train-terrain-{solver}"
+        algo, ts, logs, _ = train_v1(path, TERRAIN_SELECTIONS, solver, TERRAIN_ITERS)
+        levels = [(x["Env/terrain_level_mean"], x["Env/terrain_level_max"]) for x in logs
+                  if "Env/terrain_level_mean" in x]
+        log(f"{path}: Env/terrain_level_mean/max per iteration {levels}")
+        if algo.env.terrain is None or len(levels) != TERRAIN_ITERS or not levels[0][1] > 0:
+            log(f"FAIL: {path}: no terrain, or its levels were not logged")
+            ok = False
+        del algo, ts, logs
 
     def train_kb2(path, role, extra):
         """The training CLI on a KungfuBot2 selection set at 2048 envs;
@@ -587,6 +667,38 @@ def main():
             ok = False
         del teacher_run, algo, ts
     torch.cuda.empty_cache()
+
+    with phase("eval-agent"):
+        base = os.path.join(REPO, "build", "chip_smoke", "eval-agent")
+        shutil.rmtree(base, ignore_errors=True)
+        run = os.path.join(base, "card", EVAL_RUN)
+        shutil.copytree(os.path.join(REPO, "artifacts", EVAL_RUN), run)
+        ckpt = os.path.join(run, "ckpt", "model_10500.pkl")
+        res = count("eval-agent", lambda: eval_agent.main([f"checkpoint={ckpt}", *EVAL_OFF]))
+        # the CPU's export of the same checkpoint, as the CLI writes it
+        env, actor, cfg = batch_eval.load(ckpt, 1, EVAL_OFF, device="cpu")
+        cpu_npz = export_policy(actor, load_checkpoint_payload(ckpt)["actor_params"], env,
+                                os.path.join(base, "cpu", "model_10500.npz"),
+                                meta_extra={"motion_file": str(cfg.robot.motion.motion_file)})
+        same = {suffix: open(os.path.join(run, "exported", "model_10500" + suffix), "rb").read()
+                == open(str(cpu_npz.with_suffix(suffix)), "rb").read() for suffix in (".npz", ".onnx")}
+        steps = round(res["completion_ratio"] * eval_agent.clip_steps(env))
+        expect_launches("eval-agent", {"apgd_lanes": 4 * steps, "apgd_envfirst": 0})
+        fams = {**res["accuracy"], **res["smoothness"]}
+        log(f"eval-agent: completion_ratio {res['completion_ratio']} over {steps} steps (JAX {EVAL_JAX_COMPLETION}), "
+            + ", ".join(f"{k} {fams[k]:.5f} (JAX {v:.5f})" for k, v in EVAL_JAX_FAMILIES.items())
+            + f"; exports identical to the CPU's: {same}; families " + json.dumps(fams))
+        if not all(same.values()):
+            log("FAIL: eval-agent: the card's export differs from the CPU's")
+            ok = False
+        if res["completion_ratio"] != EVAL_JAX_COMPLETION or not all(np.isfinite(v) for v in fams.values()):
+            log("FAIL: eval-agent: completion ratio or non-finite families")
+            ok = False
+        for k, v in EVAL_JAX_FAMILIES.items():
+            if not abs(fams[k] - v) <= EVAL_REL_BAND * v:
+                log(f"FAIL: eval-agent: {k} {fams[k]:.5f} outside {v} +- {EVAL_REL_BAND:.0%}")
+                ok = False
+        del env, actor
 
     if not ok:
         log("chip_smoke: FAILED")

@@ -102,6 +102,10 @@ class MimicActorCritic(nn.Module):
         self.critic_ln = LayerNorm(critic_in)
         self.std = nn.Parameter(torch.full((num_actions,), float(init_noise_std)))
         self.min_sigma, self.max_sigma = float(min_sigma), float(max_sigma)
+        # the flax module's fields, which the ONNX writer reads
+        self.future_steps, self.future_per_step = future_steps, future_per_step
+        self.history_steps, self.history_per_step = history_steps, history_per_step
+        self.activation, self.num_actions = activation, num_actions
 
     def act(self, obs, hist_encoding: bool = False):
         mean = self.actor(obs, hist_encoding)

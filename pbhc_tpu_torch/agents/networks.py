@@ -61,6 +61,8 @@ class GaussianActor(nn.Module):
         super().__init__()
         self.mlp = MLP(in_dim, hidden_dims, num_actions, activation)
         self.std = nn.Parameter(torch.full((num_actions,), float(init_noise_std)))
+        # the flax module's fields, which the ONNX writer reads
+        self.num_actions, self.activation = num_actions, activation
 
     def forward(self, obs):
         mean = self.mlp(obs)

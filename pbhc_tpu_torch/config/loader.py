@@ -170,9 +170,12 @@ def apply_overrides(cfg: dict, overrides=()):
 
 
 # CLI selection set -> the snapshot of its composition
+_V1 = ("exp=motion_tracking", "robot=g1_23dof", "obs=motion_tracking", "rewards=motion_tracking",
+       "domain_rand=main", "simulator=tpu")
 COMPOSED = {
-    ("exp=motion_tracking", "robot=g1_23dof", "obs=motion_tracking", "rewards=motion_tracking",
-     "domain_rand=main", "simulator=tpu"): "motion_tracking_g1_23dof",
+    _V1: "motion_tracking_g1_23dof",
+    # the same on the heightfield curriculum terrain (`config/terrain/locomotion.yaml`)
+    _V1 + ("terrain=locomotion",): "motion_tracking_g1_23dof_terrain",
     # KungfuBot2 teacher and student (README's general_tracking commands), with
     # the robot groups the committed `artifacts/kb2_*` runs were composed from
     **{("exp=general_tracking", f"robot={robot}", f"obs=general_tracking_{role}", "rewards=general_tracking",

@@ -135,7 +135,9 @@ class GeneralTrackingEnv(MotionTrackingEnv):
         t = ((state.episode_length.to(torch.float32)[:, None] * self.dt + state.motion_start_times[:, None])
              + self.tar_obs_steps[None] * self.dt)                            # [N,S]
         ids = state.motion_ids[:, None].expand(t.shape)
-        fm = get_motion_state(self.motion_lib.data, ids, t)
+        # on terrain, moved onto the env's tile as every reference fetch is (`:173`)
+        off = state.origin_shift[:, None] if self.terrain is not None else None
+        fm = get_motion_state(self.motion_lib.data, ids, t, offset=off)
         froot_rot = fm["root_rot"]
         frpy = rot.get_euler_xyz(froot_rot)
         froot_vel = rot.quat_rotate_inverse(froot_rot, fm["root_vel"])

@@ -8,8 +8,10 @@ env's device, drawn only where the config turns a random feature on. Its draws
 differ from JAX's threefry, so parity tests turn randomness off.
 
 The two batched physics branches are ported: `solver: lanes` (the env-last
-engine) and `solver: pallas` with N % 128 == 0 (the env-first batched step).
-The soft-dynamic-correction hook, heightfield terrain, the OU
+engine) and `solver: pallas` with N % 128 == 0 (the env-first batched step),
+on a flat plane or on the heightfield terrain of a `terrain:` group with
+`mesh_type: heightfield` (per-env tile origins over the difficulty grid and
+the level curriculum). The soft-dynamic-correction hook, the OU
 observation-noise process, teleop and the per-env solvers (`apgd`, `pgs`,
 and `pallas` at other N) raise `NotImplementedError` naming their ROADMAP
 item.
@@ -22,6 +24,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from pbhc_tpu_torch.envs.terrain import Terrain, TerrainConfig
 from pbhc_tpu_torch.maths import rotations as rot
 from pbhc_tpu_torch.model.g1 import load_g1_motion_model, load_g1_sim_model
 from pbhc_tpu_torch.motion.motion_lib import MotionLib, get_motion_state, sample_time
@@ -113,15 +116,11 @@ class MotionTrackingEnv:
                               "(the per-env control_step path)", 10)
         if bool(ecfg.soft_dynamic_correction.get("enable", False)):
             raise _not_ported("soft dynamic correction", "7b")
-        ter = config.get("terrain")
-        if ter is not None and str(ter.get("mesh_type", "plane")) in ("heightfield", "trimesh"):
-            raise _not_ported("heightfield terrain", 10)
         if bool(ecfg.get("use_teleop_control", False)):
             raise _not_ported("teleop control", "7b")
         np_cfg = config.obs.get("noise_process")
         if np_cfg and bool(np_cfg.get("enable", False)):
             raise _not_ported("the OU observation-noise process", "7b")
-        self.terrain = None
 
         self_coll = bool(rcfg.get("self_collision", True))
         self.sim_model = load_g1_sim_model(rcfg.robot_type, self_collision=self_coll)
@@ -147,6 +146,21 @@ class MotionTrackingEnv:
                           contact_matvec_dtype=str(sim_cfg.get("contact_matvec_dtype", "float32"))),
             device=self.device)
         self.lanes_engine = self.engine.lanes() if self.solver == "lanes" else None
+
+        # terrain group (`tracking_env.py:146-176`): a heightfield goes into the
+        # engine; per-env origins over the curriculum grid, the column fixed
+        # per env, the row the env's difficulty level
+        ter = config.get("terrain")
+        self.terrain = None
+        if ter is not None and str(ter.get("mesh_type", "plane")) in ("heightfield", "trimesh"):
+            self.terrain = Terrain(TerrainConfig.from_group(ter))
+            self.engine.set_terrain(self.terrain.height_field, self.terrain.cfg.horizontal_scale)
+            self.terrain_origins = torch.as_tensor(self.terrain.env_origins, device=self.device)
+            nc, nr = self.terrain.cfg.num_cols, self.terrain.cfg.num_rows
+            self.terrain_types = torch.arange(num_envs, device=self.device) * nc // num_envs
+            self.terrain_curriculum = bool(ter.get("curriculum", False))
+            self.max_init_terrain_level = int(ter.get("max_init_terrain_level", nr - 1)) \
+                if self.terrain_curriculum else nr - 1
         self.nd, self.nb = self.engine.nd, self.engine.nb
         self.num_extend = len(extend_cfg)
         dev = self.device
@@ -338,8 +352,11 @@ class MotionTrackingEnv:
                 torch.cat([sim.body_lin_vel, lin_vel], 1), torch.cat([sim.body_ang_vel, ang_vel], 1))
 
     def _motion_state_at(self, state: EnvState, step_offset=1):
+        """The reference at `step_offset` control steps ahead, moved onto the
+        env's terrain tile (`tracking_env.py:462`)."""
         t = (state.episode_length + step_offset).to(torch.float32) * self.dt + state.motion_start_times
-        return get_motion_state(self.motion_lib.data, state.motion_ids, t), t
+        off = state.origin_shift if self.terrain is not None else None
+        return get_motion_state(self.motion_lib.data, state.motion_ids, t, offset=off), t
 
     @staticmethod
     def _compute_diffs(sim, mres, body_pos, body_quat, body_vel, body_ang_vel):
@@ -386,7 +403,8 @@ class MotionTrackingEnv:
             motion_start_times=torch.zeros((N,), device=dev),
             motion_len=self.motion_lib.data.lengths[0].expand(N).clone(),
             motion_fail_ema=torch.zeros((self.motion_lib.num_unique,), device=dev),
-            terrain_level=torch.zeros((N,), dtype=torch.int64, device=dev),
+            terrain_level=(self._randint((N,), 0, self.max_init_terrain_level + 1) if self.terrain is not None
+                           else torch.zeros((N,), dtype=torch.int64, device=dev)),
             origin_shift=torch.zeros((N, 3), device=dev),
             kp_scale=kp_s, kd_scale=kd_s, rfi_lim_scale=rfi, rao_scale=rao, default_dof_pos=ddof,
             push_counter=torch.zeros((N,), dtype=torch.int64, device=dev),
@@ -447,6 +465,25 @@ class MotionTrackingEnv:
         t = (episode_length + 1).to(torch.float32) * self.dt + motion_start
         mres = get_motion_state(data, motion_ids, t)
 
+        # terrain curriculum and per-env origins (`tracking_env.py:621-645`):
+        # an episode that ran >= 80% of its horizon moves its env a row up,
+        # one under 40% a row down; the reference fetch moves onto the tile
+        terrain_level, origin_shift = state.terrain_level, state.origin_shift
+        if self.terrain is not None:
+            if self.terrain_curriculum:
+                horizon = torch.clamp(state.motion_len, max=self.max_episode_length_s)
+                ratio = state.last_episode_length.to(torch.float32) * self.dt / torch.clamp(horizon, min=self.dt)
+                lvl = terrain_level + (ratio >= 0.8).to(torch.int64) - (ratio < 0.4).to(torch.int64)
+                lvl = torch.clamp(lvl, 0, self.terrain.cfg.num_rows - 1)
+                # envs that never ran an episode (the init reset) keep their level
+                terrain_level = torch.where(mask & (state.last_episode_length > 0), lvl, terrain_level)
+            origin = self.terrain_origins[terrain_level, self.terrain_types]
+            shift = torch.stack([origin[:, 0] - mres["root_pos"][:, 0],
+                                 origin[:, 1] - mres["root_pos"][:, 1], origin[:, 2]], dim=-1)
+            origin_shift = torch.where(mask[:, None], shift, origin_shift)
+            mres["root_pos"] = mres["root_pos"] + origin_shift
+            mres["rg_pos"] = mres["rg_pos"] + origin_shift[:, None, :]
+
         nl = float(ecfg.noise_to_initial_level)
         root_pos, root_quat = mres["root_pos"], mres["root_rot"]
         root_vel, root_ang = mres["root_vel"], mres["root_ang_vel"]
@@ -489,6 +526,7 @@ class MotionTrackingEnv:
         return dataclasses.replace(
             state, sim=sim, motion_ids=motion_ids, episode_length=episode_length,
             motion_start_times=motion_start, motion_len=motion_len,
+            terrain_level=terrain_level, origin_shift=origin_shift,
             actions=w2(zero, state.actions), last_actions=w2(zero, state.last_actions),
             actions_after_delay=w2(zero, state.actions_after_delay),
             last_dof_vel=w2(zero, state.last_dof_vel),
@@ -915,4 +953,9 @@ class MotionTrackingEnv:
             log["motion_fail_ema_max"] = state.motion_fail_ema.max()
         for i, t in enumerate(self.sigma_terms):
             log[f"adp_sigma_{t}"] = state.sigma_values[i]
+        if self.terrain is not None:
+            # the curriculum's level distribution (`tracking_env.py:1435-1440`)
+            lvl = state.terrain_level.to(torch.float32)
+            log["terrain_level_mean"] = lvl.mean()
+            log["terrain_level_max"] = lvl.max()
         return log

@@ -1,13 +1,15 @@
-"""Episode-ratio evaluation on the port (counterpart of
-`pbhc_tpu/eval/batch_eval.py::episode_ratio`, `:50-101`).
+"""Batch evaluation on the port (counterpart of `pbhc_tpu/eval/batch_eval.py`).
 
-Early termination ON, every env playing the clip from t = 0: the mean
-first-termination step and its ratio to the clip length, plus the control
-steps per second of the rollout.
+* `episode_ratio` (`:50-101`): early termination ON, every env playing the
+  clip from t = 0: the mean first-termination step and its ratio to the clip
+  length, plus the control steps per second of the rollout.
+* `sample_episodes` (`:104-134`): the three early terminations OFF, the
+  accuracy and smoothness families of env 0 over whole clips, mean and std
+  over the episodes.
 
 CLI (the JAX CLI's keys, plus `device=`):
     python -m pbhc_tpu_torch.eval.batch_eval \
-        checkpoint=artifacts/kb1_side_kick/ckpt/model_10500.pkl mode=ratio num_envs=4096
+        checkpoint=artifacts/kb1_side_kick/ckpt/model_10500.pkl mode=ratio|sample_episodes num_envs=4096
 Extra `a.b.c=value` arguments override the run config.
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 
 from pbhc_tpu_torch.agents.convert import from_flax
@@ -24,6 +27,7 @@ from pbhc_tpu_torch.agents.networks import actor_from_config
 from pbhc_tpu_torch.config.loader import Cfg, apply_overrides, snapshot_for_checkpoint
 from pbhc_tpu_torch.envs.general_tracking_env import GeneralTrackingEnv
 from pbhc_tpu_torch.envs.tracking_env import MotionTrackingEnv
+from pbhc_tpu_torch.eval.metrics import eval_accuracy, eval_smoothness
 from pbhc_tpu_torch.utils.checkpoint import load_checkpoint_payload
 
 ENV_TARGET = "pbhc_tpu.envs.tracking_env.MotionTrackingEnv"
@@ -119,6 +123,29 @@ def episode_ratio(ckpt_path, num_envs=64, overrides=(), device="cuda"):
     }
 
 
+# the terminations `sample_episodes` turns off, so that every episode plays the whole clip
+NO_TERMINATION = ("env.config.termination.terminate_when_motion_far=false",
+                  "env.config.termination.terminate_by_gravity=false",
+                  "env.config.termination.terminate_when_dof_far=false")
+
+
+def sample_episodes(ckpt_path, num_envs=4, episodes=8, overrides=(), device="cuda"):
+    """`batch_eval.py:104`: max(1, episodes // num_envs) rollouts of the whole
+    clip with early termination off; per family the mean and std over them.
+    Each rollout resets the envs to clip time 0 and draws new randomisation
+    from the env's generator."""
+    from pbhc_tpu_torch.eval_agent import clip_steps, rollout   # eval_agent imports this module
+
+    env, actor, _ = load(ckpt_path, num_envs, list(overrides) + list(NO_TERMINATION), device)
+    num_steps = clip_steps(env)
+    families = []
+    for _ in range(max(1, episodes // num_envs)):
+        traj, ref, _ = rollout(env, actor, num_steps)
+        families.append({**eval_accuracy(traj, ref, env.dt), **eval_smoothness(traj, env.dt, ref=ref)})
+    return {k: {"mean": float(np.mean([f[k] for f in families])), "std": float(np.std([f[k] for f in families]))}
+            for k in families[0]}
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     kv = dict(a.split("=", 1) for a in argv)
@@ -126,9 +153,13 @@ def main(argv=None):
     mode = kv.pop("mode", "ratio")
     num_envs = int(kv.pop("num_envs", 16))
     device = kv.pop("device", "cuda")
-    if mode != "ratio":
-        raise NotImplementedError(f"mode={mode!r}: sample_episodes is ROADMAP queue 1 item 13")
-    out = episode_ratio(ckpt, num_envs, overrides=[f"{k}={v}" for k, v in kv.items()], device=device)
+    overrides = [f"{k}={v}" for k, v in kv.items()]
+    if mode == "ratio":
+        out = episode_ratio(ckpt, num_envs, overrides=overrides, device=device)
+    elif mode in ("sample", "sample_episodes"):
+        out = sample_episodes(ckpt, num_envs, overrides=overrides, device=device)
+    else:
+        raise ValueError(f"mode={mode!r}: want ratio or sample_episodes")
     print(json.dumps(out, indent=1))
     return out
 

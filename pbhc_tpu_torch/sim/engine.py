@@ -6,9 +6,10 @@ of `pbhc_tpu/sim/engine.py`).
 `default_params`, `default_state` and `derived_state` (`:176-296`), and the
 env-first batched step of the `solver: pallas` path: `_pre_contact`,
 `substep_batched`, `_integrate`, `contact_forces_from_impulses` and
-`control_step_batched` (`:657-889`). The per-env solve paths (`substep` and
-`control_step` with the apgd/pgs `_solve_contacts`) and heightfield ground are
-ROADMAP queue 1 item 10 and are not here.
+`control_step_batched` (`:657-889`), and the heightfield ground
+(`set_terrain`, `ground_height`, `:425-450`), which both engines' contact
+rows read. The per-env solve paths (`substep` and `control_step` with the
+apgd/pgs `_solve_contacts`) are ROADMAP queue 1 item 10b and are not here.
 
 Tensors carry a leading env axis where the JAX code vmaps over envs. The
 dynamics before the contact solve (FK, CRBA, RNEA, the SPD inverse, contact
@@ -184,6 +185,29 @@ class Engine:
         # to hold a whole control step of the kernel against it.
         self.contact_solve = apgd_envfirst
         self._lanes = None
+
+    # ------------------------------------------------------------ terrain
+    def set_terrain(self, height_field, horizontal_scale):
+        """Install a heightfield ground ([H,W] metres, float32 on the engine's
+        device); the default is a flat plane (`engine.py:425`)."""
+        self.terrain_hf = torch.as_tensor(np.asarray(height_field, dtype=np.float32), device=self.device)
+        self.terrain_hscale = float(horizontal_scale)
+
+    def ground_height(self, xy):
+        """Ground height under world xy [..., 2] -> [...] (`engine.py:437`):
+        bilinear in the cell under the point, the cell index clipped in
+        float32 to [0, shape - 1.001] before `floor`, as JAX clips it, so
+        that `i0 + 1` stays inside the field."""
+        hf = self.terrain_hf
+        if hf is None:
+            return torch.zeros(xy.shape[:-1], device=xy.device)
+        ij = xy / self.terrain_hscale
+        i = torch.clamp(ij[..., 0], 0.0, hf.shape[0] - 1.001)
+        j = torch.clamp(ij[..., 1], 0.0, hf.shape[1] - 1.001)
+        i0, j0 = torch.floor(i).to(torch.int64), torch.floor(j).to(torch.int64)
+        fi, fj = i - i0, j - j0
+        return (hf[i0, j0] * (1 - fi) * (1 - fj) + hf[i0, j0 + 1] * (1 - fi) * fj
+                + hf[i0 + 1, j0] * fi * (1 - fj) + hf[i0 + 1, j0 + 1] * fi * fj)
 
     def default_params(self) -> SimParams:
         m, t = self.model, lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=self.device)

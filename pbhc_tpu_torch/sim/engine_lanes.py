@@ -106,8 +106,6 @@ class LanesEngine:
             raise NotImplementedError(
                 f"contact_matvec_dtype={engine.opt.contact_matvec_dtype!r}: the port "
                 "solves contacts in float32 only")
-        if engine.terrain_hf is not None:
-            raise NotImplementedError("heightfield ground is ROADMAP queue 1 item 10")
         self.e = engine
         self.opt = engine.opt
         # the contact solve: kernel 1's wrapper (launches the CUDA kernel for
@@ -358,8 +356,10 @@ class LanesEngine:
         return Jp.reshape(-1, J3.shape[2], J3.shape[3]), phi_p, C
 
     def _ground_height(self, xy):
-        """Flat plane (`engine_lanes.py:474`); heightfields raise at init."""
-        return torch.zeros(xy.shape[1:], device=xy.device)
+        """xy [2,K,N] world coordinates -> [K,N] (`engine_lanes.py:474`): the
+        engine's lookup (a flat plane, or the bilinear heightfield) on the
+        component-last view."""
+        return self.e.ground_height(torch.movedim(xy, 0, -1))
 
     # ------------------------------------------------------------------ substep
     def _pre_contact(self, paramsT, stateT, tauT):

@@ -1,10 +1,11 @@
 """Training CLI (counterpart of `pbhc_tpu/train.py`).
 
 Usage (selection sets with a config snapshot, `config/loader.py::COMPOSED`):
-    # KungfuBot v1 (MHPPO on MotionTrackingEnv)
+    # KungfuBot v1 (MHPPO on MotionTrackingEnv); add terrain=locomotion for the
+    # heightfield curriculum terrain
     python -m pbhc_tpu_torch.train exp=motion_tracking robot=g1_23dof \\
         obs=motion_tracking rewards=motion_tracking domain_rand=main simulator=tpu \\
-        num_envs=4096 robot.motion.motion_file=assets/motions/Horse-stance_punch.pkl \\
+        [terrain=locomotion] num_envs=4096 robot.motion.motion_file=assets/motions/Horse-stance_punch.pkl \\
         algo.config.num_learning_iterations=<n> [simulator.config.solver=pallas] [device=cpu]
     # KungfuBot2 teacher (PPOMimic on GeneralTrackingEnv; robot=g1_29dof for 29 DoF)
     python -m pbhc_tpu_torch.train exp=general_tracking robot=g1_23dof_student \\
@@ -230,9 +231,12 @@ def _run(cfg, exp_dir, config_json, config_yaml):
                                  update_s=now - t_mid))
                 scalars.write(json.dumps({"iteration": ts.iteration, **log, "Perf/total_fps": fps}) + "\n")
                 scalars.flush()
+                terr = (f" terrain_level_mean={log['Env/terrain_level_mean']:.2f}"
+                        f"/max={log['Env/terrain_level_max']:.0f}"
+                        if "Env/terrain_level_mean" in log else "")
                 print(f"[it {it + 1}/{num_iters}] rew/step={log['Train/mean_step_reward']:.4f} "
                       f"epl={log['Env/episode_length_mean']:.1f} kl={log['Loss/kl']:.4f} "
-                      f"lr={log['Loss/lr']:.2e} fps={fps:,.0f} "
+                      f"lr={log['Loss/lr']:.2e} fps={fps:,.0f}{terr} "
                       f"rollout/update={t_mid - t0:.2f}/{now - t_mid:.2f}s", flush=True)
             if (it + 1) % save_interval == 0 and it + 1 < num_iters:
                 save()

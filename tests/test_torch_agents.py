@@ -55,5 +55,6 @@ def test_convert_rejects_wrong_architecture():
 
 
 def test_cli_rejects_unported_modes():
-    with pytest.raises(NotImplementedError, match="sample_episodes"):
-        batch_eval.main(["checkpoint=" + CKPT, "mode=sample", "device=cpu"])
+    # ratio and sample_episodes (tests/test_torch_eval.py) are the modes; any other is refused
+    with pytest.raises(ValueError, match="want ratio or sample_episodes"):
+        batch_eval.main(["checkpoint=" + CKPT, "mode=sample_everything", "device=cpu"])

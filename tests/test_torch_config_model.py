@@ -111,3 +111,24 @@ def test_kb2_composed_snapshot_equals_jax_compose(sels, ovs):
     assert len(KB2_SELECTIONS) == 4
     want = json.loads(json.dumps(jax_compose(str(REPO / "pbhc_tpu" / "config"), list(sels), ovs)))
     assert json.loads(json.dumps(tl.compose(sels, ovs))) == want
+
+
+TERRAIN_SELECTIONS = ("exp=motion_tracking", "robot=g1_23dof", "obs=motion_tracking", "rewards=motion_tracking",
+                      "domain_rand=main", "simulator=tpu", "terrain=locomotion")
+# the overrides of the terrain training command (README, `chip_smoke.py`) and of the CPU tests
+TERRAIN_OVERRIDES = [[], ["num_envs=4096", "robot.motion.motion_file=assets/motions/Horse-stance_punch.pkl",
+                          "simulator.config.solver=pallas", "algo.config.num_learning_iterations=2"],
+                     ["num_envs=4", "terrain.num_rows=3", "terrain.num_cols=2", "terrain.border_size=2.0",
+                      "terrain.curriculum=true", "terrain.max_init_terrain_level=1",
+                      "robot.motion.motion_file=assets/motions/Horse-stance_pose.pkl"]]
+
+
+@pytest.mark.parametrize("ovs", TERRAIN_OVERRIDES, ids=lambda o: str(len(o)))
+def test_terrain_composed_snapshot_equals_jax_compose(ovs):
+    """`terrain=locomotion` on top of the v1 training selection set."""
+    from pbhc_tpu.config.loader import compose as jax_compose
+
+    assert tl.COMPOSED[TERRAIN_SELECTIONS] == "motion_tracking_g1_23dof_terrain"
+    want = json.loads(json.dumps(jax_compose(str(REPO / "pbhc_tpu" / "config"), list(TERRAIN_SELECTIONS), ovs)))
+    got = json.loads(json.dumps(tl.compose(TERRAIN_SELECTIONS, ovs)))
+    assert got == want and got["terrain"]["mesh_type"] == "heightfield"

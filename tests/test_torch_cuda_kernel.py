@@ -179,6 +179,40 @@ def test_kernel_matches_plain_on_29dof_contacts(cuda_device):
 
 
 @pytest.mark.cuda
+def test_kernel_matches_plain_on_heightfield_contacts(cuda_device):
+    """Kernel 1 on the contact problems of a lanes control step of the
+    committed `terrain_walk_v3` run (heightfield ground) at its 4096 envs
+    (R = 12), after 10 steps of its policy from clip start."""
+    from pbhc_tpu_torch.eval import batch_eval
+
+    env, actor, _ = batch_eval.load("artifacts/terrain_walk_v3/ckpt/model_6500.pkl", 4096, device=cuda_device)
+    assert env.terrain is not None and env.lanes_engine is not None
+    state, obs = batch_eval.start_episodes(env)
+    with torch.no_grad():
+        for _ in range(10):
+            state, obs, _, _, _ = env.step(state, actor(obs["actor_obs"])[0])
+    seen = []
+    lanes = env.lanes_engine
+
+    def record(A, b, mu, active, x0, iters):
+        seen.append((A.clone(), b.clone(), mu.clone(), active.clone(), x0.clone(), iters))
+        return ck.apgd_lanes(A, b, mu, active, x0, iters)
+
+    lanes.contact_solve = record
+    with torch.no_grad():
+        env.step(state, actor(obs["actor_obs"])[0])
+    lanes.contact_solve = ck.apgd_lanes
+    assert len(seen) == env.decimation
+    for A, b, mu, active, x0, iters in seen:
+        assert A.shape == (36, 36, 4096) and iters == 16
+        assert float(active.sum(0).gt(0).float().mean()) > 0.5       # most envs in contact
+        out = ck.apgd_lanes(A, b, mu, active, x0, iters)
+        ref = ck.apgd_lanes_plain(A, b, mu, active, x0, iters)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=ATOL)
+
+
+@pytest.mark.cuda
 def test_mimic_networks_on_card_match_cpu(cuda_device):
     """The committed 23-DoF teacher's `MimicActorCritic` (Conv1d encoders,
     LayerNorms, MLPs) on the card and on the CPU, on the serving path's

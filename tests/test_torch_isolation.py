@@ -5,10 +5,13 @@ TensorBoard. A subprocess that blocks those modules (and `pbhc_tpu`) imports
 every module of `pbhc_tpu_torch` and `chip_smoke`, builds the side-kick env
 and actor on the CPU at 128 envs from the config snapshot and the checkpoint,
 drives a few control steps of the serving loop, does the same for the
-KungfuBot2 teacher (`GeneralTrackingEnv`, `MimicActorCritic`) at 32 envs,
-and runs the training CLI (`python -m pbhc_tpu_torch.train`) for one
-iteration: MHPPO at 128 envs, and a KungfuBot2 student distilled from the
-committed teacher (its config read from the snapshot) at 32 envs.
+KungfuBot2 teacher (`GeneralTrackingEnv`, `MimicActorCritic`) at 32 envs
+and for the heightfield-terrain run `terrain_walk_v3` at 16 envs, runs the
+training CLI (`python -m pbhc_tpu_torch.train`) for one iteration: MHPPO at
+128 envs, and a KungfuBot2 student distilled from the committed teacher (its
+config read from the snapshot) at 32 envs, and runs the evaluation CLI
+(`python -m pbhc_tpu_torch.eval_agent`) on a copy of the side-kick run with
+its clip cut to 20 frames.
 """
 import ast
 import subprocess
@@ -50,6 +53,21 @@ SCRIPT = textwrap.dedent("""
     state, obs = batch_eval.start_episodes(env)
     state, first, nonfinite = batch_eval.rollout_ratio(env, actor, state, obs, 3)
     assert obs["future_motion_targets"].shape == (32, 1140) and int(nonfinite) == 0
+    env, actor, cfg = batch_eval.load("artifacts/terrain_walk_v3/ckpt/model_6500.pkl", 16, device="cpu")
+    state, obs = batch_eval.start_episodes(env)
+    state, first, nonfinite = batch_eval.rollout_ratio(env, actor, state, obs, 3)
+    assert env.engine.terrain_hf.shape == (1300, 2100) and int(nonfinite) == 0
+    assert float(state.sim.root_pos[:, 1].max()) > 150.0
+    import pickle, shutil
+    from pathlib import Path
+    from pbhc_tpu_torch.motion.motion_lib import load_motion_dict
+    run = Path("{base_dir}") / "evalrun" / "kb1_side_kick"
+    (run / "ckpt").mkdir(parents=True)
+    shutil.copy("artifacts/kb1_side_kick/ckpt/model_10500.pkl", run / "ckpt")
+    raw = load_motion_dict("assets/motions/Side_kick.pkl")
+    key = next(iter(raw))
+    clip = {{k: (v[:20] if hasattr(v, "shape") else v) for k, v in raw[key].items()}}
+    (run.parent / "short.pkl").write_bytes(pickle.dumps({{key: clip}}))
     import runpy
     sys.argv = ["pbhc_tpu_torch.train", "exp=motion_tracking", "robot=g1_23dof", "obs=motion_tracking",
                 "rewards=motion_tracking", "domain_rand=main", "simulator=tpu", "num_envs=128",
@@ -65,6 +83,10 @@ SCRIPT = textwrap.dedent("""
                 "algo.config.num_learning_iterations=1", "device=cpu", "base_dir={base_dir}",
                 "artifact_dir={base_dir}/art", "experiment_name=student"]
     runpy.run_module("pbhc_tpu_torch.train", run_name="__main__")
+    sys.argv = ["pbhc_tpu_torch.eval_agent", f"checkpoint={{run}}/ckpt/model_10500.pkl", "device=cpu",
+                f"robot.motion.motion_file={{run.parent}}/short.pkl"]
+    runpy.run_module("pbhc_tpu_torch.eval_agent", run_name="__main__")
+    assert (run / "exported" / "model_10500.onnx").is_file() and (run / "eval_model_10500.json").is_file()
     leaked = [n for n, m in sys.modules.items() if n.split(".")[0] in BLOCKED and m is not None]
     assert not leaked, leaked
     print("modules", len(names), "ISOLATION OK")
