@@ -24,7 +24,12 @@ holds every CUDA kernel they launch against its plain PyTorch version:
   `terrain=locomotion` at 4096 envs, once per solver (kernels 1 and 2);
 - evaluation: `pbhc_tpu_torch.eval_agent.main`, the evaluation CLI, on a copy
   of the side-kick run under `build/chip_smoke/` (the deploy export, the
-  deterministic rollout with randomness off, the metric families; kernel 1).
+  deterministic rollout with randomness off, the metric families; kernel 1);
+- the per-env engine: `episode_ratio` of the side-kick at 4096 envs with
+  `solver: apgd` (plain PyTorch solves, no kernel, as in JAX);
+- the options no committed run selects: soft dynamic correction on the lanes
+  engine, KungfuBot2 training with MoE backbones, MHPPO training with
+  phase-aware networks (kernel 1).
 Phases, each announced when it starts and when it ends:
 
   build            - compile both kernels from `pbhc_tpu_torch/csrc/` (nvcc, sm_90a, in parallel)
@@ -36,20 +41,30 @@ Phases, each announced when it starts and when it ends:
                      kernel 1 vs plain solve
   substep-terrain  - one lanes control step of terrain_walk_v3 (heightfield) at 4096 envs, kernel 1
                      vs plain solve
+  substep-apgd     - one per-env control step of the side-kick at 4096 envs, solver apgd, card vs CPU
+  substep-pgs      - the same with solver pgs
+  substep-sdc      - one lanes control step with soft dynamic correction (alpha 0.1) at 4096 envs,
+                     kernel 1 vs plain solve
   serving          - the episode_ratio rollout; kernel launches counted from 0
   serving-kb2      - the KungfuBot2 teacher's episode_ratio rollout at 2048 envs; counted from 0
   serving-terrain  - terrain_walk_v3's episode_ratio rollout at 4096 envs; counted from 0
+  serving-apgd     - the side-kick's episode_ratio rollout at 4096 envs with solver apgd; counted
+                     from 0 (no kernel launches)
   train-lanes      - the training CLI for 2 iterations, solver lanes; launches counted from 0
   train-pallas     - the training CLI for 2 iterations, solver pallas; launches counted from 0
   update           - one minibatch update on the card and on the CPU, same state and batch
   checkpoint       - read back the `.pkl` the train-pallas run wrote
-  train-terrain-lanes  - the training CLI with terrain=locomotion, 2 iterations, solver lanes
+  train-terrain-lanes  - the training CLI with terrain=locomotion, 1 iteration, solver lanes
   train-terrain-pallas - the same with solver pallas
+  train-phase      - the training CLI with phase-aware (sinusoidal) MHPPO networks, 1 iteration, lanes
   train-kb2-teacher - the training CLI, KungfuBot2 teacher, 2 iterations (RL + DAgger, then RL)
   train-kb2-student - the training CLI, KungfuBot2 student distilled from the committed teacher,
                      2 iterations; its history encoder must stay the teacher's
   update-kb2       - one PPOMimic RL minibatch update on the card and on the CPU
   resume           - the teacher run resumed from its checkpoint to 3 iterations in all
+  train-kb2-moe    - the training CLI, KungfuBot2 teacher with MoE actor and critic, 1 iteration
+                     (RL + DAgger); the load-balance loss logged
+  update-kb2-moe   - one PPOMimic RL minibatch update of the MoE nets on the card and on the CPU
   eval-agent       - the evaluation CLI on a copy of the side-kick run; its export against the
                      CPU's, its completion ratio and families against the JAX package's
   report           - the `kernels` JSON line, the card line, the final result line
@@ -62,6 +77,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import glob
 import json
 import os
@@ -91,8 +107,15 @@ KB2_ITERS = 2        # iteration 0 runs RL + DAgger (dagger_update_freq 20), ite
 KB2_UPDATE_SAMPLES = 12288   # one PPOMimic minibatch: 24 steps x 2048 envs / 4
 TERRAIN_CKPT = "artifacts/terrain_walk_v3/ckpt/model_6500.pkl"   # heightfield run, 4096 envs
 TERRAIN_SELECTIONS = TRAIN_SELECTIONS + ["terrain=locomotion"]
-TERRAIN_ITERS = 2    # the first iteration warms up; the second is timed
+TERRAIN_ITERS = 1    # cut from 2 when the per-env and option phases came: they repeat train-lanes/-pallas
+                     # with a heightfield lookup, so one (untimed) iteration checks the path
 EVAL_RUN = "kb1_side_kick"
+PER_ENV = ["simulator.config.solver=apgd"]          # the per-env engine, as `batch_eval` overrides it
+SDC = ["env.config.soft_dynamic_correction.enable=true", "env.config.soft_dynamic_correction.alpha=0.1",
+       "env.config.soft_dynamic_correction.type=deter"]
+MOE = ["algo.config.module_dict.actor.layer_config.type=MoEMLP",
+       "algo.config.module_dict.critic.layer_config.type=MoEMLP"]
+PHASE = ["algo.config.phase_embed.type=Sinusoidal"]
 # randomness off (the set of tests/test_torch_env.py): the eval rollout is
 # then deterministic, and its completion ratio comparable with the JAX one's
 EVAL_OFF = ["domain_rand.push_robots=false", "domain_rand.randomize_torque_rfi=false",
@@ -145,6 +168,14 @@ KB2_RATIO_BAND = 0.02
 #   the other serving phases.
 TERRAIN_JAX_RATIO = 0.9020365168539326
 TERRAIN_RATIO_BAND = 0.02
+# - per-env serving ratio: the JAX package's own figure for the side-kick
+#   checkpoint at 4096 envs with solver apgd on the CPU (JAX_PLATFORMS=cpu
+#   python -m pbhc_tpu.eval.batch_eval
+#   checkpoint=artifacts/kb1_side_kick/ckpt/model_10500.pkl mode=ratio
+#   num_envs=4096 simulator.config.solver=apgd, see PERF.md: ratio_std
+#   0.034); the same band as the lanes figure of this checkpoint.
+APGD_JAX_RATIO = 0.9973456899726432
+APGD_RATIO_BAND = 0.02
 # - eval-agent: the JAX package's own figures for the side-kick checkpoint
 #   with EVAL_OFF on the CPU (JAX_PLATFORMS=cpu python -m pbhc_tpu.eval_agent
 #   checkpoint=<copy of artifacts/kb1_side_kick>/ckpt/model_10500.pkl
@@ -368,8 +399,9 @@ def main():
                 return solve(A, b, mu, active, x0, iters)
 
             lanes.contact_solve = recorded
+            pre = env._sdc_pre_fn(state, state.sim) if env.use_sdc else None
             outs[name], _ = lanes.control_step_batched(env.sim_params, state.sim, pd, env.decimation,
-                                                       paramsT=env.paramsT)
+                                                       paramsT=env.paramsT, pre_substep_fn=pre)
         lanes.contact_solve = k1
         torch.cuda.synchronize()
         worst, step_ok = compare_steps(torch, outs, STEP_RTOL)
@@ -454,13 +486,91 @@ def main():
         del env, actor, state, obs
         torch.cuda.empty_cache()
 
-    def serving(path, ckpt, n, jax_ratio, band):
-        """`episode_ratio` of `ckpt` at `n` envs, its launches counted from 0."""
+    def per_env_step_check(path, solver):
+        """One per-env control step of the side-kick at 4096 envs (after
+        SETTLE_STEPS under its policy on the card) on the card and on the CPU,
+        from the same state with the same PD torques; no kernel launches. An
+        env whose contact starts a substep early or late on one device jumps
+        (tests/test_torch_terrain.py): an env beyond the gate must be one whose
+        CPU step jumps (a joint velocity by more than 2e-3 rad/s) when its root
+        is nudged by 1e-5 m, and at most an eighth of the envs may be."""
+        nonlocal ok
+        from pbhc_tpu_torch.sim.engine import Engine, tree_map
+
+        env, actor, _ = batch_eval.load(CKPT, NUM_ENVS, [f"simulator.config.solver={solver}"], device=dev)
+        if env.physics != "per_env":
+            log(f"FAIL: {path}: solver {solver} did not take the per-env engine")
+            ok = False
+        state, obs = batch_eval.start_episodes(env)
+        with torch.no_grad():
+            for _ in range(SETTLE_STEPS):
+                state, obs, _, _, _ = env.step(state, actor(obs["actor_obs"])[0])
+            mean = actor(obs["actor_obs"])[0]
+        target = mean * env.action_scales + state.default_dof_pos
+        kp, kd = state.kp_scale * env.p_gains, state.kd_scale * env.d_gains
+
+        def pd_on(device):
+            t, p_, d_, lim = (x.to(device) for x in (target, kp, kd, env.torque_limits))
+            return lambda st: torch.clamp(p_ * (t - st.dof_pos) - d_ * st.dof_vel, -lim, lim)
+
+        cpu_engine = Engine(env.sim_model, env.engine.opt, device="cpu")
+        to_cpu = lambda x: x.cpu()
+        cpu_params, cpu_sim = tree_map(to_cpu, env.sim_params), tree_map(to_cpu, state.sim)
+        t0 = time.perf_counter()
+        card_out = count(path, lambda: env.engine.control_step(env.sim_params, state.sim, pd_on(dev),
+                                                               env.decimation)[0])
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_out, _ = cpu_engine.control_step(cpu_params, cpu_sim, pd_on("cpu"), env.decimation)
+        cpu_s = time.perf_counter() - t0
+        expect_launches(path, {"apgd_lanes": 0, "apgd_envfirst": 0})
+        fields = ("root_pos", "root_quat", "root_lin_vel", "root_ang_vel", "dof_pos", "dof_vel", "body_pos",
+                  "contact_forces")
+        rel = torch.stack([(getattr(card_out, f).cpu() - getattr(cpu_out, f)).abs().reshape(NUM_ENVS, -1).amax(1)
+                           / max(1.0, float(getattr(cpu_out, f).abs().max())) for f in fields]).amax(0)
+        far = rel > STEP_RTOL
+        jumps = torch.zeros_like(far)
+        if far.any():
+            for dz in (1e-5, -1e-5):
+                rp = cpu_sim.root_pos.clone()
+                rp[:, 2] += dz
+                nudged, _ = cpu_engine.control_step(cpu_params, dataclasses.replace(cpu_sim, root_pos=rp),
+                                                    pd_on("cpu"), env.decimation)
+                jumps |= (nudged.dof_vel - cpu_out.dof_vel).abs().amax(1) > 2e-3
+        worst = float(rel[~far].max()) if bool((~far).any()) else float("nan")
+        in_contact = int((cpu_out.contact_forces.abs().sum((1, 2)) > 0).sum())
+        log(f"{path}: one per-env control step at {NUM_ENVS} envs ({in_contact} with contact impulses), card vs "
+            f"CPU: max relative diff {worst:.3e} over {int((~far).sum())} envs (tol {STEP_RTOL:g}), "
+            f"{int(far.sum())} envs beyond it (largest {float(rel.max()):.3e}), of which {int((far & jumps).sum())} "
+            f"jump on the CPU under a 1e-5 m nudge; {card_s:.3f} s on {card} (first call), {cpu_s:.3f} s on the CPU")
+        if bool((far & ~jumps).any()) or int(far.sum()) > NUM_ENVS // 8 or not bool(torch.isfinite(rel).all()):
+            log(f"FAIL: {path}: the card's step parts from the CPU's where the CPU's step is continuous")
+            ok = False
+        if in_contact < NUM_ENVS // 2:
+            log("FAIL: too few envs in contact for the comparison to test the solve")
+            ok = False
+        torch.cuda.empty_cache()
+
+    with phase("substep-apgd"):
+        per_env_step_check("substep-apgd", "apgd")
+
+    with phase("substep-pgs"):
+        per_env_step_check("substep-pgs", "pgs")
+
+    with phase("substep-sdc"):
+        # soft dynamic correction pulls every substep towards the reference
+        # through the lanes engine's pre-substep hook
+        side_kick_step_check(tuple(SDC), ROWS)
+
+    def serving(path, ckpt, n, jax_ratio, band, overrides=(), kernel_launches=True):
+        """`episode_ratio` of `ckpt` at `n` envs, its launches counted from 0:
+        4 of kernel 1 per control step on the lanes engine, none per env."""
         nonlocal ok
         with phase(path):
-            res = count(path, lambda: batch_eval.episode_ratio(ckpt, n, device=dev))
+            res = count(path, lambda: batch_eval.episode_ratio(ckpt, n, overrides, device=dev))
             log(f"episode_ratio ({path}): " + json.dumps(res))
-            expect_launches(path, {"apgd_lanes": 4 * res["episode_steps"], "apgd_envfirst": 0})
+            expect_launches(path, {"apgd_lanes": 4 * res["episode_steps"] if kernel_launches else 0,
+                                   "apgd_envfirst": 0})
             if res["nonfinite_env_steps"] != 0:
                 log(f"FAIL: {res['nonfinite_env_steps']} env-steps ended non-finite")
                 ok = False
@@ -473,6 +583,7 @@ def main():
     serving("serving", CKPT, NUM_ENVS, JAX_RATIO, RATIO_BAND)
     serving("serving-kb2", KB2_CKPT, KB2_ENVS, KB2_JAX_RATIO, KB2_RATIO_BAND)
     serving("serving-terrain", TERRAIN_CKPT, NUM_ENVS, TERRAIN_JAX_RATIO, TERRAIN_RATIO_BAND)
+    serving("serving-apgd", CKPT, NUM_ENVS, APGD_JAX_RATIO, APGD_RATIO_BAND, PER_ENV, kernel_launches=False)
 
     def train_v1(path, selections, solver, iters):
         """The training CLI on a v1 selection set at 4096 envs for `iters`
@@ -494,10 +605,12 @@ def main():
                 log(f"FAIL: {path}: {len(logs)} logged iterations, non-finite values {bad}")
                 ok = False
             timed = logs[1:]           # the first iteration warms up cuBLAS and the allocator
-            steps = algo.num_steps * algo.env.num_envs
-            eps = steps * len(timed) / sum(x["rollout_s"] + x["update_s"] for x in timed)
-            log(f"{path}: train_env_steps_per_sec {eps:.1f} at {algo.env.num_envs} envs on {card} "
-                f"(iterations 2-{iters}); per iteration rollout/update seconds "
+            if timed:
+                steps = algo.num_steps * algo.env.num_envs
+                eps = steps * len(timed) / sum(x["rollout_s"] + x["update_s"] for x in timed)
+                log(f"{path}: train_env_steps_per_sec {eps:.1f} at {algo.env.num_envs} envs on {card} "
+                    f"(iterations 2-{iters})")
+            log(f"{path}: per iteration rollout/update seconds "
                 + ", ".join(f"{x['rollout_s']:.3f}/{x['update_s']:.3f}" for x in logs))
             log(f"{path}: last log: rew/step {logs[-1]['Train/mean_step_reward']:.4f}, "
                 f"kl {logs[-1]['Loss/kl']:.4f}, lr {logs[-1]['Loss/lr']:.2e}, "
@@ -563,6 +676,14 @@ def main():
             log(f"FAIL: {path}: no terrain, or its levels were not logged")
             ok = False
         del algo, ts, logs
+
+    algo, ts, _, _ = train_v1("train-phase", TRAIN_SELECTIONS + PHASE, "lanes", 1)
+    kinds = (type(ts.actor).__name__, type(ts.critic).__name__)
+    log(f"train-phase: networks {kinds}, phase at {algo.phase_pos}")
+    if kinds != ("PhaseAwareActor", "PhaseAwareCritic"):
+        log("FAIL: train-phase did not build phase-aware networks")
+        ok = False
+    del algo, ts
 
     def train_kb2(path, role, extra):
         """The training CLI on a KungfuBot2 selection set at 2048 envs;
@@ -668,6 +789,41 @@ def main():
         del teacher_run, algo, ts
     torch.cuda.empty_cache()
 
+    with phase("train-kb2-moe"):
+        algo, ts, logs, _ = train_kb2("train-kb2-moe", "teacher", ["algo.config.num_learning_iterations=1", *MOE])
+        expect_launches("train-kb2-moe", {"apgd_lanes": 96, "apgd_envfirst": 0})
+        lb = logs[0].get("Loss/load_balancing", float("nan")) if logs else float("nan")
+        log(f"train-kb2-moe: Loss/load_balancing {lb:.5f}, Loss/hist_latent {logs[0].get('Loss/hist_latent')}, "
+            f"backbones {type(ts.net.actor.backbone).__name__}/{type(ts.net.critic).__name__}; per iteration "
+            "rollout/update seconds " + ", ".join(f"{x['rollout_s']:.3f}/{x['update_s']:.3f}" for x in logs))
+        if not (len(logs) == 1 and lb > 0 and "Loss/hist_latent" in logs[0]
+                and type(ts.net.critic).__name__ == "MoEMLP"):
+            log("FAIL: train-kb2-moe: no positive load-balance loss, or not RL + DAgger with MoE nets")
+            ok = False
+        moe_run = (algo, ts)
+    torch.cuda.empty_cache()
+
+    with phase("update-kb2-moe"):
+        algo, ts = moe_run
+        cpu = mimic_cpu_copy(algo, ts)
+        for st, d in ((ts, dev), (cpu, "cpu")):
+            st.lr, st.iteration = torch.tensor(algo.learning_rate, device=d), 2500
+        batch = mimic_update_batch(torch, algo, ts, cpu, KB2_UPDATE_SAMPLES)
+        m_cpu = algo.update_rl(cpu, batch)
+        m_gpu = algo.update_rl(ts, {k: v.to(dev) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        worst = max(float((a.detach().cpu() - c.detach()).abs().max())
+                    for a, c in zip(ts.net.parameters(), cpu.net.parameters()))
+        lr_same = float(ts.lr) == float(cpu.lr)
+        log(f"one PPOMimic RL minibatch update with MoE nets, {KB2_UPDATE_SAMPLES} samples, card vs CPU: params "
+            f"max abs diff {worst:.3e} (tol {UPDATE_ATOL:g}), lr {float(ts.lr):.3e} vs {float(cpu.lr):.3e}, "
+            f"load_balancing {float(m_gpu['load_balancing']):.6f} vs {float(m_cpu['load_balancing']):.6f}")
+        if not (worst <= UPDATE_ATOL and lr_same):
+            log("FAIL: the card's MoE PPOMimic update disagrees with the CPU's")
+            ok = False
+        del moe_run, algo, ts, cpu, batch
+    torch.cuda.empty_cache()
+
     with phase("eval-agent"):
         base = os.path.join(REPO, "build", "chip_smoke", "eval-agent")
         shutil.rmtree(base, ignore_errors=True)
@@ -708,7 +864,7 @@ def main():
                    "apgd_envfirst": ("pbhc_tpu_torch/csrc/apgd_envfirst.cu", "pbhc_tpu/sim/pallas_contact.py:37")}
         kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                         launches=sum(launches[name].values()),
-                        launches_by_path={p: n for p, n in launches[name].items() if n},
+                        launches_by_path=dict(launches[name]),
                         library_ms=None, **stats[name])
                    for name, (src, rep) in sources.items()]
         log(f"total seconds: {time.perf_counter() - t_start:.1f}")

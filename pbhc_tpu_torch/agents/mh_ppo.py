@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from pbhc_tpu_torch.agents.networks import (actor_from_config, critic_from_config, flax_init_,
-                                            gaussian_entropy, gaussian_log_prob)
+                                            gaussian_entropy, gaussian_log_prob, phase_embed_config,
+                                            phase_position)
 
 
 class Adam:
@@ -117,6 +118,9 @@ class MHPPO:
             else torch.float32
         self.actor_dim = env.obs_dim("actor_obs")
         self.critic_dim = env.obs_dim("critic_obs")
+        # phase-aware networks read the phase at its place in each obs group (`mh_ppo.py:67-87`)
+        phase_aware = phase_embed_config(config)[0] != "Original"
+        self.phase_pos = {g: phase_position(env, g) if phase_aware else None for g in ("actor_obs", "critic_obs")}
 
     # ------------------------------------------------------------------ setup
     def new_train_state(self, actor, critic, env_state=None, obs=None) -> TrainState:
@@ -132,8 +136,10 @@ class MHPPO:
     def init_train_state(self) -> TrainState:
         """Fresh networks (flax's initialisers), env state and first obs (`mh_ppo.py:106`)."""
         init_gen = torch.Generator().manual_seed(self.seed)
-        actor = flax_init_(actor_from_config(self.full_config, self.actor_dim, self.num_act), init_gen)
-        critic = flax_init_(critic_from_config(self.full_config, self.critic_dim, self.num_rew), init_gen)
+        actor = flax_init_(actor_from_config(self.full_config, self.actor_dim, self.num_act,
+                                             self.phase_pos["actor_obs"]), init_gen)
+        critic = flax_init_(critic_from_config(self.full_config, self.critic_dim, self.num_rew,
+                                               self.phase_pos["critic_obs"]), init_gen)
         env_state = self.env.init_state()
         obs, env_state.history = self.env.compute_observations(env_state)
         return self.new_train_state(actor.to(self.device), critic.to(self.device), env_state, obs)

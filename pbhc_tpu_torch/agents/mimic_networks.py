@@ -5,7 +5,10 @@
 `MimicActor` (motion encoder over the future targets, history encoder over
 the proprioceptive history, a priv MLP encoder, LayerNorm, MLP backbone) and
 `MimicActorCritic` (the actor, an MLP critic behind its own LayerNorm, and a
-global sigma clipped to [min_sigma, max_sigma]).
+global sigma clipped to [min_sigma, max_sigma]). Either backbone may be a
+`MoEMLP` (`mimic_networks.py:20-27`); `act_lb` and `evaluate_lb` then also
+return the load-balance losses of the experts they ran, which flax sows
+(`ppo_mimic.py:227-234` sums them), 0 for MLP backbones.
 
 Every submodule carries its flax name (`Dense_0`, `Conv_0`, `ln`, ...), so
 `agents/convert.py` maps the flax tree onto it by path. Flax's `nn.Conv`
@@ -19,7 +22,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from pbhc_tpu_torch.agents.networks import _ACT, MLP, LayerNorm
+from pbhc_tpu_torch.agents.networks import _ACT, MLP, LayerNorm, MoEMLP
 
 _CONV_PLANS = {  # `mimic_networks.py:29-33`
     5: dict(out_channels=[20, 10], kernels=[2, 2], strides=[1, 1]),
@@ -28,12 +31,19 @@ _CONV_PLANS = {  # `mimic_networks.py:29-33`
 }
 
 
-def _backbone(kind: str, in_dim, hidden_dims, out_dim, activation):
+def _backbone(kind: str, in_dim, hidden_dims, out_dim, activation, num_experts: int = 4, top_k: int = 2):
+    """`mimic_networks.py:20`: an `MLP` or a `MoEMLP`."""
     if kind == "MoEMLP":
-        raise NotImplementedError("MoEMLP backbones are not ported yet (ROADMAP queue 1 item 11b)")
+        return MoEMLP(in_dim, hidden_dims, out_dim, num_experts, top_k, activation)
     if kind != "MLP":
         raise ValueError(f"unknown backbone type {kind!r}")
     return MLP(in_dim, hidden_dims, out_dim, activation)
+
+
+def _with_lb(backbone, x):
+    """(output, load-balance loss) of a backbone; 0 for an MLP."""
+    out = backbone(x)
+    return out if isinstance(out, tuple) else (out, x.new_zeros(()))
 
 
 class ConvEncoder(nn.Module):
@@ -68,21 +78,26 @@ class MimicActor(nn.Module):
                  future_steps: int, future_per_step: int, history_steps: int, history_per_step: int,
                  motion_latent: int = 128, hist_latent: int = 64, motion_hidden: int = 60,
                  history_hidden: int = 30, priv_hidden: Sequence[int] = (64,), activation: str = "SiLU",
-                 backbone_type: str = "MLP"):
+                 backbone_type: str = "MLP", num_experts: int = 4, top_k: int = 2):
         super().__init__()
         self.motion_encoder = ConvEncoder(future_steps, future_per_step, motion_hidden, motion_latent, activation)
         self.history_encoder = ConvEncoder(history_steps, history_per_step, history_hidden, hist_latent,
                                            activation)
         self.priv_encoder = MLP(priv_dim, tuple(priv_hidden), hist_latent, activation)
         in_dim = actor_dim + motion_latent + hist_latent
-        self.backbone = _backbone(backbone_type, in_dim, tuple(hidden_dims), num_actions, activation)
+        self.backbone = _backbone(backbone_type, in_dim, tuple(hidden_dims), num_actions, activation,
+                                  num_experts, top_k)
         self.ln = LayerNorm(in_dim)
 
-    def forward(self, obs, hist_encoding: bool):
+    def forward_lb(self, obs, hist_encoding: bool):
+        """(mean action, the backbone's load-balance loss)."""
         motion = self.motion_encoder(obs["future_motion_targets"])
         latent = (self.history_encoder(obs["prop_history"]) if hist_encoding
                   else self.priv_encoder(obs["priv_obs"]))
-        return self.backbone(self.ln(torch.cat([obs["actor_obs"], motion, latent], dim=-1)))
+        return _with_lb(self.backbone, self.ln(torch.cat([obs["actor_obs"], motion, latent], dim=-1)))
+
+    def forward(self, obs, hist_encoding: bool):
+        return self.forward_lb(obs, hist_encoding)[0]
 
 
 class MimicActorCritic(nn.Module):
@@ -92,13 +107,16 @@ class MimicActorCritic(nn.Module):
                  critic_hidden: Sequence[int], num_actions: int, num_values: int,
                  future_steps: int, future_per_step: int, history_steps: int, history_per_step: int,
                  init_noise_std: float = 1.0, min_sigma: float = 0.2, max_sigma: float = 1.2,
-                 activation: str = "SiLU", actor_type: str = "MLP", critic_type: str = "MLP"):
+                 activation: str = "SiLU", actor_type: str = "MLP", critic_type: str = "MLP",
+                 num_experts: int = 4, top_k: int = 2):
         super().__init__()
         self.actor = MimicActor(actor_dim, priv_dim, actor_hidden, num_actions, future_steps,
                                 future_per_step, history_steps, history_per_step,
-                                activation=activation, backbone_type=actor_type)
+                                activation=activation, backbone_type=actor_type,
+                                num_experts=num_experts, top_k=top_k)
         critic_in = actor_dim + priv_dim + self.actor.motion_encoder.Dense_1.out_features
-        self.critic = _backbone(critic_type, critic_in, tuple(critic_hidden), num_values, activation)
+        self.critic = _backbone(critic_type, critic_in, tuple(critic_hidden), num_values, activation,
+                                num_experts, top_k)
         self.critic_ln = LayerNorm(critic_in)
         self.std = nn.Parameter(torch.full((num_actions,), float(init_noise_std)))
         self.min_sigma, self.max_sigma = float(min_sigma), float(max_sigma)
@@ -107,14 +125,22 @@ class MimicActorCritic(nn.Module):
         self.history_steps, self.history_per_step = history_steps, history_per_step
         self.activation, self.num_actions = activation, num_actions
 
-    def act(self, obs, hist_encoding: bool = False):
-        mean = self.actor(obs, hist_encoding)
+    def act_lb(self, obs, hist_encoding: bool = False):
+        """((mean, std), the actor backbone's load-balance loss)."""
+        mean, lb = self.actor.forward_lb(obs, hist_encoding)
         std = torch.clamp(torch.abs(self.std), self.min_sigma, self.max_sigma)
-        return mean, std.expand_as(mean)
+        return (mean, std.expand_as(mean)), lb
+
+    def act(self, obs, hist_encoding: bool = False):
+        return self.act_lb(obs, hist_encoding)[0]
+
+    def evaluate_lb(self, obs):
+        """(values, the critic backbone's load-balance loss)."""
+        motion = self.actor.motion_encoder(obs["future_motion_targets"])
+        return _with_lb(self.critic, self.critic_ln(torch.cat([obs["actor_obs"], obs["priv_obs"], motion], dim=-1)))
 
     def evaluate(self, obs):
-        motion = self.actor.motion_encoder(obs["future_motion_targets"])
-        return self.critic(self.critic_ln(torch.cat([obs["actor_obs"], obs["priv_obs"], motion], dim=-1)))
+        return self.evaluate_lb(obs)[0]
 
     def priv_latent(self, priv_obs):
         return self.actor.priv_encoder(priv_obs)
@@ -140,7 +166,10 @@ def build_mimic_net(algo_cfg, num_act: int, actor_dim: int, priv_dim: int, futur
         min_sigma=float(a_cfg.get("min_sigma", 0.2)), max_sigma=float(a_cfg.get("max_sigma", 1.2)),
         activation=a_cfg.layer_config.activation,
         actor_type=str(a_cfg.layer_config.get("type", "MLP")),
-        critic_type=str(v_cfg.layer_config.get("type", "MLP")))
+        critic_type=str(v_cfg.layer_config.get("type", "MLP")),
+        # both backbones take the actor's expert counts, as `ppo_mimic.py:77-78` does
+        num_experts=int(a_cfg.layer_config.get("num_experts", 4)),
+        top_k=int(a_cfg.layer_config.get("top_k", 2)))
 
 
 def mimic_net_from_config(cfg, num_act: int) -> MimicActorCritic:

@@ -11,6 +11,12 @@ Three modes on one `MimicActorCritic`, with the JAX module's semantics:
   latent and runs a DAgger pass on the same data after the RL update: the
   history encoder regresses onto the frozen priv latent through its own Adam
   (`hist_opt`, fixed lr), and nothing else moves (`:278-345`);
+- with a `MoEMLP` actor or critic backbone, the RL loss adds
+  `load_balancing_loss_alpha` x the sum of the Switch load-balance losses of
+  the backbones `act` and `evaluate` ran (`ppo_mimic.py:125-131`, `:227-263`),
+  and the iteration logs their mean as `Loss/load_balancing` (the JAX module
+  computes it and does not log it); like the JAX module, no other update adds
+  it;
 - distillation (`dagger_only` with a teacher): the student drives the env
   with its deterministic history-latent action and clones the frozen
   teacher's with an L2 loss; the history encoder grafted from the teacher
@@ -113,6 +119,9 @@ class PPOMimic:
         self.dagger_only = bool(c.get("dagger_only", False))
         self.priv_reg_schedule = [float(x) for x in c.priv_reg_coef_schedual]
         self.num_act = int(env.num_actions)
+        kinds = [str(c.module_dict[m].layer_config.get("type", "MLP")) for m in ("actor", "critic")]
+        self.use_moe = "MoEMLP" in kinds
+        self.lb_alpha = float(c.get("load_balancing_loss_alpha", 1e-2))
         self.teacher = teacher
         if self.dagger_only and teacher is None:
             raise ValueError("dagger_only (distillation) needs algo.config.teacher_model_path")
@@ -198,12 +207,12 @@ class PPOMimic:
         """One RL minibatch (`ppo_mimic.py:236`); updates `ts` in place."""
         net = ts.net
         obs = {k: batch[k] for k in OBS_KEYS}
-        mean, std = net.act(obs, False)
+        (mean, std), lb_a = net.act_lb(obs, False)
         ratio = torch.exp(gaussian_log_prob(mean, std, batch["actions"]) - batch["logp"])
         adv = batch["advantages"]
         surr = torch.maximum(-adv * ratio, -adv * torch.clamp(ratio, 1 - self.clip, 1 + self.clip)).mean()
         entropy = gaussian_entropy(std).mean()
-        value = net.evaluate(obs)
+        value, lb_v = net.evaluate_lb(obs)
         tv, ret = batch["values"], batch["returns"]
         v_clip = tv + torch.clamp(value - tv, -self.clip, self.clip)
         vloss = torch.maximum((value - ret) ** 2, (v_clip - ret) ** 2).sum(-1).mean()
@@ -211,8 +220,9 @@ class PPOMimic:
         with torch.no_grad():
             hist_lat = net.hist_latent(batch["prop_history"])
         priv_reg = torch.linalg.vector_norm(priv_lat - hist_lat, dim=-1).mean()
+        lb = lb_a + lb_v
         loss = (surr - self.entropy_coef * entropy + self.value_loss_coef * vloss
-                + self.priv_reg_coef(ts.iteration) * priv_reg)
+                + self.priv_reg_coef(ts.iteration) * priv_reg + self.lb_alpha * lb)
         with torch.no_grad():
             kl = torch.sum(torch.log(std / batch["std"] + 1e-5)
                            + (batch["std"] ** 2 + (batch["mean"] - mean) ** 2) / (2.0 * std ** 2) - 0.5,
@@ -224,7 +234,7 @@ class PPOMimic:
                                         torch.clamp(lr * 1.5, max=1e-2), lr))
         ts.opt.step(grads, ts.lr)
         return dict(surrogate=surr.detach(), value_loss=vloss.detach(), entropy=entropy.detach(), kl=kl,
-                    priv_reg=priv_reg.detach())
+                    priv_reg=priv_reg.detach(), load_balancing=lb.detach())
 
     def update_dagger(self, ts: MimicTrainState, priv_obs, prop_history):
         """One history-encoder minibatch (`ppo_mimic.py:326`): the history
@@ -288,6 +298,8 @@ class PPOMimic:
             mean = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
             log.update({"Loss/surrogate": mean["surrogate"], "Loss/value": mean["value_loss"],
                         "Loss/kl": mean["kl"], "Loss/priv_reg": mean["priv_reg"], "Loss/lr": ts.lr})
+            if self.use_moe:
+                log["Loss/load_balancing"] = mean["load_balancing"]
             if hist_encoding:
                 log["Loss/hist_latent"] = self._dagger_pass(ts, flat)
         ts.env_state, ts.obs, ts.iteration = env_state, obs, ts.iteration + 1

@@ -31,8 +31,8 @@ def _floats(t) -> list:
 
 def export_policy(actor, params, env, path, meta_extra=None):
     """`params`, the flax params `{"params": {"MLP_0": ..., "std": ...}}` of
-    `actor` (a `GaussianActor`, read for the ONNX graph's activation and
-    width), -> `path` (.npz: `w<i>`, `b<i>` in flax's `[in, out]` layout,
+    `actor` (a `GaussianActor` or `PhaseAwareActor`, read for the ONNX
+    graph's activation, width and phase embedding), -> `path` (.npz: `w<i>`, `b<i>` in flax's `[in, out]` layout,
     `std`, and `meta_json`) and its ONNX twin `path.with_suffix(".onnx")`.
     Returns `path`."""
     path = Path(path)

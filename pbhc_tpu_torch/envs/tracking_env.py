@@ -1,24 +1,31 @@
-"""Motion-tracking RL environment in torch, lanes branch (counterpart of
+"""Motion-tracking RL environment in torch (counterpart of
 `pbhc_tpu/envs/tracking_env.py`).
 
 One batched state (`EnvState`, leading env axis) and step/reset functions with
 masked `torch.where` resets, so a rollout never leaves the device and never
 synchronises with the host. Randomness comes from one `torch.Generator` on the
 env's device, drawn only where the config turns a random feature on. Its draws
-differ from JAX's threefry, so parity tests turn randomness off.
+differ from JAX's threefry, so parity tests turn randomness off or inject
+JAX's draws.
 
-The two batched physics branches are ported: `solver: lanes` (the env-last
-engine) and `solver: pallas` with N % 128 == 0 (the env-first batched step),
-on a flat plane or on the heightfield terrain of a `terrain:` group with
+All three physics branches of the JAX step are here: `solver: lanes` (the
+env-last engine, kernel 1), `solver: pallas` with N % 128 == 0 (the env-first
+batched step, kernel 2), and the per-env engine for `apgd`, `pgs` and
+`pallas` at other N (`Engine.control_step`, plain PyTorch as in JAX), on a
+flat plane or on the heightfield terrain of a `terrain:` group with
 `mesh_type: heightfield` (per-env tile origins over the difficulty grid and
-the level curriculum). The soft-dynamic-correction hook, the OU
-observation-noise process, teleop and the per-env solvers (`apgd`, `pgs`,
-and `pallas` at other N) raise `NotImplementedError` naming their ROADMAP
-item.
+the level curriculum). So are soft dynamic correction (on the lanes branch,
+else on the per-env branch, as in JAX), the OU observation-noise process,
+the probabilistic close-to-limit terminations, `parallel_serial_tau` (the
+per-env branch only: JAX's batched branches ignore it, and the port refuses
+it there rather than copy either behaviour), the MPPI snapshots and
+`obs_key_slices`. Teleop raises `NotImplementedError` (ROADMAP queue 1
+item 13: it needs `deploy/teleop.py`).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict
 
 import numpy as np
@@ -30,6 +37,7 @@ from pbhc_tpu_torch.model.g1 import load_g1_motion_model, load_g1_sim_model
 from pbhc_tpu_torch.motion.motion_lib import MotionLib, get_motion_state, sample_time
 from pbhc_tpu_torch.sim.engine import Engine, EngineOptions, SimState, tree_map
 from pbhc_tpu_torch.sim.engine_lanes import LanesEngine
+from pbhc_tpu_torch.utils.noise_tool import ou_step
 
 
 @dataclasses.dataclass
@@ -91,8 +99,19 @@ def obs_width(obs_cfg, group) -> int:
     return d
 
 
-def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+def _env_fields(fn, n, obj, *rest):
+    """`fn(field, *rest_fields)` on every tensor of an `EnvState` (nested
+    `SimState` and history dict included) whose leading axis is the env axis
+    of length `n`; every other leaf is `obj`'s, unchanged."""
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: _env_fields(fn, n, getattr(obj, f.name),
+                                                               *(getattr(r, f.name) for r in rest))
+                                           for f in dataclasses.fields(obj)})
+    if isinstance(obj, dict):
+        return {k: _env_fields(fn, n, v, *(r[k] for r in rest)) for k, v in obj.items()}
+    if isinstance(obj, torch.Tensor) and obj.ndim >= 1 and obj.shape[0] == n:
+        return fn(obj, *rest)
+    return obj
 
 
 class MotionTrackingEnv:
@@ -109,18 +128,28 @@ class MotionTrackingEnv:
         sim_cfg = config.simulator.config
 
         self.solver = str(sim_cfg.get("solver", "apgd"))
-        if self.solver not in ("lanes", "pallas"):
-            raise _not_ported(f"solver={self.solver!r} (the per-env env-first engine)", 10)
-        if self.solver == "pallas" and num_envs % 128:
-            raise _not_ported(f"solver='pallas' with num_envs={num_envs}, not a multiple of 128 "
-                              "(the per-env control_step path)", 10)
-        if bool(ecfg.soft_dynamic_correction.get("enable", False)):
-            raise _not_ported("soft dynamic correction", "7b")
+        if self.solver not in ("lanes", "pallas", "apgd", "pgs"):
+            raise ValueError(f"unknown solver {self.solver!r}")
         if bool(ecfg.get("use_teleop_control", False)):
-            raise _not_ported("teleop control", "7b")
+            raise NotImplementedError("teleop control is not ported yet: it needs deploy/teleop.py "
+                                      "(ROADMAP queue 1 item 13)")
+        # the physics branch of `tracking_env.py:791-896`: soft dynamic
+        # correction runs on the lanes engine or else per env
+        self.use_sdc = bool(ecfg.soft_dynamic_correction.get("enable", False))
+        if self.solver == "lanes":
+            self.physics = "lanes"
+        elif self.solver == "pallas" and num_envs % 128 == 0 and not self.use_sdc:
+            self.physics = "batched"
+        else:
+            self.physics = "per_env"
+        pstau = config.domain_rand.get("parallel_serial_tau", {})
+        self.use_pstau = bool(pstau and pstau.get("enable", False))
+        if self.use_pstau and self.physics != "per_env":
+            raise NotImplementedError(
+                "parallel_serial_tau on the batched branches: the JAX package applies its torque "
+                "injection only on the per-env branch and ignores it here (ROADMAP queue 3)")
         np_cfg = config.obs.get("noise_process")
-        if np_cfg and bool(np_cfg.get("enable", False)):
-            raise _not_ported("the OU observation-noise process", "7b")
+        self.noise_process = np_cfg if np_cfg and bool(np_cfg.get("enable", False)) else None
 
         self_coll = bool(rcfg.get("self_collision", True))
         self.sim_model = load_g1_sim_model(rcfg.robot_type, self_collision=self_coll)
@@ -136,7 +165,7 @@ class MotionTrackingEnv:
         self.dt = self.decimation * self.sim_dt
         self.engine = Engine(
             self.sim_model,
-            EngineOptions(dt=self.sim_dt,
+            EngineOptions(dt=self.sim_dt, solver=self.solver,
                           solver_iters=int(sim_cfg.get("solver_iters", 32)),
                           self_collision=self_coll,
                           contact_cap=int(sim_cfg.get("contact_cap", 0)),
@@ -545,23 +574,81 @@ class MotionTrackingEnv:
 
     # ------------------------------------------------------------------- step
     def _torque_fn(self, state: EnvState, target, kp_eff, kd_eff):
-        """PD torques with RFI/RAO, both batched branches (`tracking_env.py:860-887`)."""
+        """PD torques with RFI and RAO (`tracking_env.py:767-787`, `:860-887`),
+        and on the per-env branch the gaussian torque injection of
+        `parallel_serial_tau` on its joints (`:778-783`)."""
         dr = self.dr
         rfi = bool(dr.get("randomize_torque_rfi", False))
         rao = bool(dr.get("use_rao", False))
         rfi_scale = float(dr.rfi_lim) * state.rfi_lim_scale * self.torque_limits if rfi else None
         rao_tau = state.rao_scale * self.torque_limits if rao else None
+        if self.use_pstau:
+            pstau = dr.parallel_serial_tau
+            pst_idx = torch.as_tensor(np.asarray(list(pstau.joint_idx), dtype=np.int64), device=self.device)
+            pst_scale = float(pstau.rfi_lim) * self.torque_limits[pst_idx]
 
         def torque_fn(st):
             tau = kp_eff * (target - st.dof_pos) - kd_eff * st.dof_vel
             if rfi:
                 noise = 2.0 * torch.rand(tau.shape, generator=self.gen, device=self.device) - 1.0
                 tau = tau + noise * rfi_scale
+            if self.use_pstau:
+                g = torch.randn((tau.shape[0], len(pst_idx)), generator=self.gen, device=self.device)
+                tau = tau.index_add(1, pst_idx, pst_scale * g)
             if rao:
                 tau = tau + rao_tau
             return torch.clamp(tau, -self.torque_limits, self.torque_limits)
 
         return torque_fn
+
+    def _gate(self, prob) -> torch.Tensor:
+        """One Bernoulli draw with probability `prob`, shared by every env."""
+        return torch.rand((), generator=self.gen, device=self.device) < float(prob)
+
+    def _sdc_pre_fn(self, state: EnvState, sim: SimState):
+        """Soft dynamic correction (`tracking_env.py:791-858`): before each
+        substep every env's root pose and velocities and joint state move
+        towards the reference of the step's target time by `substep_alpha`,
+        the fraction that compounds to `sdc_alpha` over the control step
+        (gated per env by a draw under `type: prob`, and off below 0.005)."""
+        N, cfg = self.num_envs, self.ecfg.soft_dynamic_correction
+        ref, _ = self._motion_state_at(dataclasses.replace(state, sim=sim), 1)
+        substep_alpha = 1.0 - (1.0 - state.sdc_alpha) ** (1.0 / self.decimation)
+        if str(cfg.get("type", "deter")) == "prob":
+            gate = (torch.rand((N,), generator=self.gen, device=self.device)
+                    < torch.sqrt(state.sdc_alpha)).to(torch.float32)
+        else:
+            gate = torch.ones((N,), device=self.device)
+        a = (substep_alpha * gate * (state.sdc_alpha >= 0.005).to(torch.float32))[:, None]
+
+        def pre(st):
+            return dataclasses.replace(
+                st, root_pos=st.root_pos + a * (ref["root_pos"] - st.root_pos),
+                root_quat=rot.slerp(st.root_quat, ref["root_rot"], a),
+                root_lin_vel=st.root_lin_vel + a * (ref["root_vel"] - st.root_lin_vel),
+                root_ang_vel=st.root_ang_vel + a * (ref["root_ang_vel"] - st.root_ang_vel),
+                dof_pos=st.dof_pos + a * (ref["dof_pos"] - st.dof_pos),
+                dof_vel=st.dof_vel + a * (ref["dof_vel"] - st.dof_vel))
+
+        return pre
+
+    @staticmethod
+    def get_mppi_buffers(state: EnvState, env_ids) -> EnvState:
+        """A snapshot of the envs `env_ids` for MPPI-style branching rollouts
+        (`tracking_env.py:377`): every env-leading field gathered over the
+        env axis; the shared scalars as they are."""
+        return _env_fields(lambda x: x[env_ids], state.episode_length.shape[0], state)
+
+    @staticmethod
+    def set_mppi_buffers(state: EnvState, snapshot: EnvState, env_ids) -> EnvState:
+        """`state` with `snapshot` written into the env slots `env_ids`
+        (`tracking_env.py:390`); fields without the env axis stay `state`'s."""
+        def put(full, snap):
+            out = full.clone()
+            out[env_ids] = snap
+            return out
+
+        return _env_fields(put, state.episode_length.shape[0], state, snapshot)
 
     def step(self, state: EnvState, actions):
         """One control step -> (state, obs_dict, rew [N,R], done, info) (`tracking_env.py:720`)."""
@@ -596,15 +683,20 @@ class MotionTrackingEnv:
         kp_eff = state.kp_scale * self.p_gains
         kd_eff = state.kd_scale * self.d_gains
         target = after_delay * self.action_scales + state.default_dof_pos
-        pstau = dr.get("parallel_serial_tau", {})
-        if pstau and pstau.get("enable", False):
-            raise _not_ported("parallel_serial_tau torque injection", "7b")
+        torque_fn = self._torque_fn(state, target, kp_eff, kd_eff)
+        pre = self._sdc_pre_fn(state, sim) if self.use_sdc else None
         # `solver: lanes` runs the env-last engine (kernel 1), `solver: pallas`
-        # the env-first batched step (kernel 2) (`tracking_env.py:860-889`)
-        physics = self.lanes_engine if self.solver == "lanes" else self.engine
-        sim, torques = physics.control_step_batched(
-            self.sim_params, sim, self._torque_fn(state, target, kp_eff, kd_eff), self.decimation,
-            paramsT=self.paramsT)
+        # at N % 128 == 0 the env-first batched step (kernel 2), anything else
+        # the per-env engine (`tracking_env.py:791-896`)
+        if self.physics == "lanes":
+            sim, torques = self.lanes_engine.control_step_batched(
+                self.sim_params, sim, torque_fn, self.decimation, paramsT=self.paramsT, pre_substep_fn=pre)
+        elif self.physics == "batched":
+            sim, torques = self.engine.control_step_batched(
+                self.sim_params, sim, torque_fn, self.decimation, paramsT=self.paramsT)
+        else:
+            sim, torques = self.engine.control_step(
+                self.sim_params, sim, torque_fn, self.decimation, pre_substep_fn=pre, paramsT=self.paramsT)
         episode_length = state.episode_length + 1
 
         base_quat = sim.root_quat
@@ -635,9 +727,24 @@ class MotionTrackingEnv:
             term["motion_far"] = torch.any(norm(diffs["dif_body_pos"], dim=-1) > state.motion_far_threshold, dim=-1)
         if tcfg.terminate_when_dof_far:
             term["dof_far"] = norm(diffs["dif_joint_pos"], dim=-1) > state.dof_far_threshold
-        for name in ("dof_pos", "dof_vel", "torque"):
-            if tcfg.get(f"terminate_when_close_to_{name}_limit", False):
-                raise _not_ported(f"terminate_when_close_to_{name}_limit", "7b")
+        # probabilistic close-to-limit terminations: one Bernoulli gate per
+        # step shared across envs (`tracking_env.py:943-961`)
+        tprob = ecfg.termination_probality
+        if tcfg.get("terminate_when_close_to_dof_pos_limit", False):
+            lim = self.dof_pos_limits
+            m, r = (lim[:, 0] + lim[:, 1]) / 2, lim[:, 1] - lim[:, 0]
+            sc = float(tscl.termination_close_to_dof_pos_limit)
+            out = (-torch.clamp(sim.dof_pos - (m - 0.5 * r * sc), max=0.0)
+                   + torch.clamp(sim.dof_pos - (m + 0.5 * r * sc), min=0.0)).sum(-1)
+            term["dof_pos_limit"] = (out > 0) & self._gate(tprob.terminate_when_close_to_dof_pos_limit)
+        if tcfg.get("terminate_when_close_to_dof_vel_limit", False):
+            out = torch.clamp(torch.abs(sim.dof_vel) - self.dof_vel_limits
+                              * float(tscl.termination_close_to_dof_vel_limit), 0.0, 1.0).sum(-1)
+            term["dof_vel_limit"] = (out > 0) & self._gate(tprob.terminate_when_close_to_dof_vel_limit)
+        if tcfg.get("terminate_when_close_to_torque_limit", False):
+            out = torch.clamp(torch.abs(torques) - self.torque_limits
+                              * float(tscl.termination_close_to_torque_limit), 0.0, 1.0).sum(-1)
+            term["torque_limit"] = (out > 0) & self._gate(tprob.terminate_when_close_to_torque_limit)
         term = self._extra_terminations(term, diffs, state)
         term["nonfinite"] = ~(torch.isfinite(sim.dof_pos).all(-1) & torch.isfinite(sim.dof_vel).all(-1)
                               & torch.isfinite(sim.root_pos).all(-1) & torch.isfinite(sim.root_quat).all(-1))
@@ -680,6 +787,12 @@ class MotionTrackingEnv:
             actions_after_delay=after_delay, torques=torques, last_episode_length=episode_length)
         state2 = self._update_curricula(state2, n_reset)
         state2 = self._reset_envs(state2, reset_buf)
+        if self.noise_process is not None:
+            # the OU process behind the noised IMU observations (`tracking_env.py:1036-1045`)
+            kw = dict(self.noise_process.get("kwargs", {}))
+            noise_ou, _ = ou_step(state2.noise_ou, self.gen, self.dt, theta=float(kw.get("theta", 1.0)),
+                                  sigma=float(kw.get("sigma", 1.0)))
+            state2 = dataclasses.replace(state2, noise_ou=torch.where(reset_buf[:, None], 0.0, noise_ou))
 
         obs_dict, hist = self.compute_observations(state2)
         m1 = reset_buf[:, None]
@@ -861,6 +974,13 @@ class MotionTrackingEnv:
                 state.noise_curriculum_value, float(ocfg.soft_dof_pos_curriculum_level_down_threshold),
                 float(rcfg.reward_penalty_level_up_threshold), float(ocfg.soft_dof_pos_curriculum_degree),
                 float(ocfg.noise_value_min), float(ocfg.noise_value_max), up_shrinks=False)
+        sdc = ecfg.soft_dynamic_correction
+        if self.use_sdc and bool(sdc.curriculum.get("enable", False)):
+            # alpha grows while episodes are short, shrinks once they are long (`tracking_env.py:1270-1278`)
+            out["sdc_alpha"] = ramp(
+                state.sdc_alpha, float(sdc.curriculum.level_down_threshold),
+                float(sdc.curriculum.level_up_threshold), float(sdc.curriculum.degree),
+                float(sdc.curriculum.min_alpha), float(sdc.curriculum.max_alpha), up_shrinks=True)
         return dataclasses.replace(state, **out)
 
     # ------------------------------------------------------------------- obs
@@ -881,10 +1001,21 @@ class MotionTrackingEnv:
         local_ref = rot.quat_rotate(hi.expand(ref_rel.shape[:-1] + (4,)), ref_rel)
         phase = torch.clamp(motion_times / state.motion_len, 0.0, 1.05)[:, None]
         dof_pos = sim.dof_pos - state.default_dof_pos
+        base_ang_vel_noise, projected_gravity_noise = base_ang_vel, projected_gravity
+        if self.noise_process is not None:
+            # the OU state perturbs roll-pitch-yaw (degrees) and the world angular
+            # velocity; the IMU readings are recomputed from them (`tracking_env.py:1308-1320`)
+            scale = self.noise_process.get("scale", {})
+            rpy = rot.get_euler_xyz(base_quat) + state.noise_ou[:, :3] * float(scale.get("rpy", 1.0)) \
+                * (math.pi / 180.0)
+            quat_noise = rot.quat_from_euler_xyz(rpy)
+            ang_w = sim.root_ang_vel + state.noise_ou[:, 3:6] * float(scale.get("base_ang_vel", 0.1))
+            base_ang_vel_noise = rot.quat_rotate_inverse(quat_noise, ang_w)
+            projected_gravity_noise = rot.quat_rotate_inverse(quat_noise, self._gravity_vec.expand(N, 3))
         return {
             "base_pos_z": sim.root_pos[:, 2:3], "base_lin_vel": base_lin_vel,
             "base_ang_vel": base_ang_vel, "projected_gravity": projected_gravity,
-            "base_ang_vel_noise": base_ang_vel, "projected_gravity_noise": projected_gravity,
+            "base_ang_vel_noise": base_ang_vel_noise, "projected_gravity_noise": projected_gravity_noise,
             "dof_pos_noise": dof_pos, "dof_vel_noise": sim.dof_vel, "dof_pos": dof_pos,
             "dof_vel": sim.dof_vel, "actions": state.actions, "ref_motion_phase": phase,
             "dif_local_rigid_body_pos": dif_local.reshape(N, -1),
@@ -932,6 +1063,18 @@ class MotionTrackingEnv:
     def obs_dim(self, group):
         """Static obs width per group (`tracking_env.py:1399`)."""
         return obs_width(self.config.obs, group)
+
+    def obs_key_slices(self, group):
+        """{obs key: (start, end)} within the concatenated obs group `group`,
+        keys in the sorted order the group is built in, a history key as wide
+        as its ring buffers (`tracking_env.py:1403-1415`)."""
+        slices, off = {}, 0
+        for name in sorted(self.config.obs.obs_dict[group]):
+            d = (sum(self.obs_dims[k] * n for k, n in self.history_spec[name].items())
+                 if name in self.history_spec else self.obs_dims[name])
+            slices[name] = (off, off + d)
+            off += d
+        return slices
 
     # ------------------------------------------------------------------- logs
     def _build_log(self, term, reset_buf, rew_vec, errors, state):

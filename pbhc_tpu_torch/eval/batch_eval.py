@@ -23,7 +23,7 @@ import torch
 
 from pbhc_tpu_torch.agents.convert import from_flax
 from pbhc_tpu_torch.agents.mimic_networks import MimicActorCritic, mimic_net_from_config
-from pbhc_tpu_torch.agents.networks import actor_from_config
+from pbhc_tpu_torch.agents.networks import actor_from_config, phase_embed_config, phase_position
 from pbhc_tpu_torch.config.loader import Cfg, apply_overrides, snapshot_for_checkpoint
 from pbhc_tpu_torch.envs.general_tracking_env import GeneralTrackingEnv
 from pbhc_tpu_torch.envs.tracking_env import MotionTrackingEnv
@@ -43,7 +43,7 @@ def set_precision():
 
 def load(ckpt_path, num_envs, overrides=(), device="cuda", seed=0):
     """(env, actor, cfg) for the run that wrote `ckpt_path` (`batch_eval.py:24`):
-    a `MotionTrackingEnv` and `GaussianActor` for an MHPPO run, a
+    a `MotionTrackingEnv` and `GaussianActor` (or `PhaseAwareActor`) for an MHPPO run, a
     `GeneralTrackingEnv` and `MimicActorCritic` for a PPOMimic one."""
     set_precision()
     cfg = snapshot_for_checkpoint(ckpt_path)
@@ -57,7 +57,8 @@ def load(ckpt_path, num_envs, overrides=(), device="cuda", seed=0):
         actor = from_flax(payload["params"], mimic_net_from_config(cfg, env.num_actions))
     else:
         params = payload.get("actor_params") or payload.get("params")
-        actor = from_flax(params, actor_from_config(cfg, env.obs_dim("actor_obs"), env.num_actions))
+        pos = phase_position(env, "actor_obs") if phase_embed_config(cfg)[0] != "Original" else None
+        actor = from_flax(params, actor_from_config(cfg, env.obs_dim("actor_obs"), env.num_actions, pos))
     return env, actor.to(env.device).eval(), cfg
 
 

@@ -8,7 +8,11 @@ the rollout `warmup` times, then traces `steps` control steps with
 the one stream), the busy share, CUDA kernels launched per step, the contact
 kernels' device time per step, and the top ops by device time.
 
-    python -m pbhc_tpu_torch.eval.profile_rollout [num_envs=4096] [steps=5] [warmup=3] [checkpoint=<pkl>]
+    python -m pbhc_tpu_torch.eval.profile_rollout [num_envs=4096] [steps=5] [warmup=3] [checkpoint=<pkl>] \
+        [a.b.c=value ...]
+
+Extra `a.b.c=value` arguments override the run config, as in `batch_eval`
+(for example `simulator.config.solver=apgd` for the per-env engine).
 
 Needs a CUDA card; it does not fall back to the CPU.
 """
@@ -26,13 +30,13 @@ from pbhc_tpu_torch.eval import batch_eval
 CKPT = "artifacts/kb1_side_kick/ckpt/model_10500.pkl"
 
 
-def profile_rollout(num_envs=4096, steps=5, warmup=3, checkpoint=CKPT):
+def profile_rollout(num_envs=4096, steps=5, warmup=3, checkpoint=CKPT, overrides=()):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_rollout measures the card: no CUDA device visible")
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda:0")
-    env, actor, _ = batch_eval.load(checkpoint, num_envs, device=dev)
+    env, actor, _ = batch_eval.load(checkpoint, num_envs, overrides, device=dev)
     state, obs = batch_eval.start_episodes(env)
 
     def run(n):
@@ -51,7 +55,8 @@ def profile_rollout(num_envs=4096, steps=5, warmup=3, checkpoint=CKPT):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(steps)
         torch.cuda.synchronize()
-    return {"checkpoint": str(checkpoint), "num_envs": num_envs, "steps": steps, **device_summary(prof, steps, wall_ms, "step"),
+    return {"checkpoint": str(checkpoint), "num_envs": num_envs, "steps": steps, "overrides": list(overrides),
+            **device_summary(prof, steps, wall_ms, "step"),
             "device": torch.cuda.get_device_name(dev)}
 
 
@@ -80,9 +85,12 @@ def device_summary(prof, n, wall_ms, unit):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    kv = {k: v if k == "checkpoint" else int(v) for k, v in (a.split("=", 1) for a in argv)}
+    kv = dict(a.split("=", 1) for a in argv)
+    args = {k: int(kv.pop(k)) for k in ("num_envs", "steps", "warmup") if k in kv}
+    if "checkpoint" in kv:
+        args["checkpoint"] = kv.pop("checkpoint")
     batch_eval.set_precision()
-    print(json.dumps(profile_rollout(**kv)), flush=True)
+    print(json.dumps(profile_rollout(**args, overrides=[f"{k}={v}" for k, v in kv.items()])), flush=True)
 
 
 if __name__ == "__main__":

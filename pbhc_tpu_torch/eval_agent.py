@@ -27,7 +27,7 @@ from pathlib import Path
 
 import torch
 
-from pbhc_tpu_torch.agents.networks import GaussianActor
+from pbhc_tpu_torch.agents.networks import GaussianActor, PhaseAwareActor
 from pbhc_tpu_torch.deploy.export import export_policy
 from pbhc_tpu_torch.eval import batch_eval
 from pbhc_tpu_torch.eval.callbacks import build_callbacks
@@ -113,7 +113,7 @@ def main(argv=None):
     device = kv.pop("device", "cuda")
 
     env, actor, cfg = batch_eval.load(ckpt_path, num_envs, [f"{k}={v}" for k, v in kv.items()], device)
-    if not isinstance(actor, GaussianActor):
+    if not isinstance(actor, (GaussianActor, PhaseAwareActor)):
         raise NotImplementedError("eval_agent exports MHPPO actors; the student export is ROADMAP "
                                   "queue 1 item 13")
     # a run trained with opt=record carries save_motion in its config

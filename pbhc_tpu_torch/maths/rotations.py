@@ -84,6 +84,14 @@ def get_euler_xyz(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([roll, pitch, yaw], dim=-1)
 
 
+def quat_from_euler_xyz(rpy: torch.Tensor) -> torch.Tensor:
+    """(roll, pitch, yaw) -> XYZW quaternion, extrinsic xyz (`rotations.py:191`)."""
+    r, p, y = rpy[..., 0] * 0.5, rpy[..., 1] * 0.5, rpy[..., 2] * 0.5
+    cr, sr, cp, sp, cy, sy = torch.cos(r), torch.sin(r), torch.cos(p), torch.sin(p), torch.cos(y), torch.sin(y)
+    return torch.stack([sr * cp * cy - cr * sp * sy, cr * sp * cy + sr * cp * sy,
+                        cr * cp * sy - sr * sp * cy, cr * cp * cy + sr * sp * sy], dim=-1)
+
+
 def exp_map_to_quat(e: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Axis-angle vector -> XYZW quat, Taylor-safe near zero (`rotations.py:103`)."""
     angle = torch.linalg.vector_norm(e, dim=-1, keepdim=True)

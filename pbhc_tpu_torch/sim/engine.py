@@ -6,17 +6,21 @@ of `pbhc_tpu/sim/engine.py`).
 `default_params`, `default_state` and `derived_state` (`:176-296`), and the
 env-first batched step of the `solver: pallas` path: `_pre_contact`,
 `substep_batched`, `_integrate`, `contact_forces_from_impulses` and
-`control_step_batched` (`:657-889`), and the heightfield ground
-(`set_terrain`, `ground_height`, `:425-450`), which both engines' contact
-rows read. The per-env solve paths (`substep` and `control_step` with the
-apgd/pgs `_solve_contacts`) are ROADMAP queue 1 item 10b and are not here.
+`control_step_batched` (`:657-889`), the heightfield ground (`set_terrain`,
+`ground_height`, `:425-450`), which both engines' contact rows read, and the
+per-env engine: `spd_inverse` (`:37`), `_solve_contacts` (`:501-655`, APGD
+or sequential PGS with a warm start), `substep` and `control_step`
+(`:807-861`), which the JAX package runs per env under `vmap` and the port
+runs over the env batch with the same per-env semantics.
 
 Tensors carry a leading env axis where the JAX code vmaps over envs. The
 dynamics before the contact solve (FK, CRBA, RNEA, the SPD inverse, contact
 Jacobians and pair rows) are the lanes engine's (`sim/engine_lanes.py`), which
 computes the same quantities with the env axis last; `_pre_contact`
-transposes them. From the Delassus matrix on, the step is env-first, as
-`Engine.substep_batched` is, and the contact solve is kernel 2.
+transposes them. From the Delassus matrix on, the step is env-first. In
+`substep_batched`, as in `Engine.substep_batched`, the contact solve is
+kernel 2; in `substep` it is the per-env solve, plain PyTorch, as it is XLA
+code (not Pallas) in the JAX package.
 """
 from __future__ import annotations
 
@@ -31,6 +35,18 @@ from pbhc_tpu_torch.model.mjcf import RobotModel
 from pbhc_tpu_torch.sim.contact_kernel import apgd_envfirst
 
 GRAVITY = 9.81
+
+
+def spd_inverse(M: torch.Tensor) -> torch.Tensor:
+    """Batched small-SPD inverse by unrolled Gauss-Jordan without pivoting
+    (`engine.py:37`): n rank-1 updates of [M | I], each one batched op."""
+    n = M.shape[-1]
+    X = torch.cat([M, torch.eye(n, dtype=M.dtype, device=M.device).expand(M.shape)], dim=-1)
+    for j in range(n):
+        row = X[..., j, :] / X[..., j, j][..., None]
+        X = X - X[..., :, j][..., None] * row[..., None, :]
+        X[..., j, :] = row
+    return X[..., :, n:]
 
 
 @dataclasses.dataclass
@@ -72,9 +88,10 @@ def tree_map(fn, obj):
 
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
-    """The options the lanes engine reads (`engine.py:103-148`; see the JAX
-    module for each one's rationale). `solver`, `relaxation` and
-    `contact_reg` serve only the env-first solvers and come with them.
+    """The engines' options (`engine.py:103-148`; see the JAX module for each
+    one's rationale). `solver` (the per-env solve runs APGD for "apgd" and
+    "pallas", else PGS, as in JAX), `relaxation` and `contact_reg` serve only
+    the per-env solve; the env picks the engine from its own `solver` key.
 
     There is no `lanes_contact_kernel`: in the JAX package that key picks the
     Pallas kernel or the XLA scan, two implementations of one function (and
@@ -84,10 +101,12 @@ class EngineOptions:
     of the key in a run config and reads none."""
 
     dt: float = 1.0 / 200.0
+    solver: str = "apgd"
     solver_iters: int = 32
     baumgarte: float = 0.2
     contact_margin: float = 0.0
     penetration_slop: float = 0.002
+    relaxation: float = 0.9
     max_depenetration_velocity: float = 1.0
     max_dof_vel: float = 100.0
     max_root_lin_vel: float = 50.0
@@ -95,6 +114,7 @@ class EngineOptions:
     joint_limits: bool = True
     self_collision: bool = True
     pos_iters: int = 8
+    contact_reg: float = 1e-3
     energy_projection: bool = True
     contact_cap: int = 0
     pair_cap: int = 4
@@ -123,8 +143,8 @@ def active_set_indices(opt: EngineOptions, K: int, P: int, phi: torch.Tensor):
 
 
 class Engine:
-    """Static per-robot tables shared with `LanesEngine`, and the env-first
-    batched step (`engine.py:173`)."""
+    """Static per-robot tables shared with `LanesEngine`, the env-first
+    batched step and the per-env step (`engine.py:173`)."""
 
     def __init__(self, model: RobotModel, options: EngineOptions = EngineOptions(),
                  device="cuda"):
@@ -298,22 +318,25 @@ class Engine:
         b = b.reshape(N, R * 3)
 
         lam = self.contact_solve(A, b, params.friction, active, opt.solver_iters)   # [N,R,3]
-        lamf = lam.reshape(N, R * 3)
-        # energy safeguard: rescale so that f(t lam) <= 0 (`engine.py:722-729`)
-        lAl = torch.sum(lamf * (A @ lamf[..., None])[..., 0], dim=-1)
-        t = torch.clamp(-torch.sum(b * lamf, dim=-1) / torch.clamp(lAl, min=1e-12), 0.0, 1.0)
-        t = torch.where(lAl > 1e-12, t, 1.0)
-        lam = lam * t[:, None, None]
-        lamf = lamf * t[:, None]
+        lamf = self._energy_safeguard(A, b, lam.reshape(N, R * 3))
+        lam = lamf.reshape(N, R, 3)
         u_new = u_plus + (M_inv @ (JfT @ lamf[..., None]))[..., 0]
 
-        # split-impulse position pass (`engine.py:734-752`)
+        dpos = self._position_pass(A, phi, active, M_inv, JfT)
+        return self._integrate(states, u_new, dpos), self._to_world(lam, idx, C)
+
+    def _position_pass(self, A, phi, active, M_inv, JfT):
+        """Split-impulse position pass (`engine.py:630-647`, `:734-752`): a
+        normal-only projected gradient on the Delassus operator, applied to
+        positions only. Returns the generalized displacement [N,nv]."""
+        opt = self.opt
+        N, R = phi.shape
         b_err = -opt.baumgarte / opt.dt * torch.clamp(phi + opt.penetration_slop, max=0.0)
         b_err = torch.clamp(b_err, max=opt.max_depenetration_velocity)   # [N,R]
         act3 = torch.repeat_interleave(active, 3, dim=1)
         Lp = torch.amax(act3 * torch.sum(torch.abs(A) * act3[:, None, :], dim=2), dim=1)
         inv_Lp = (1.0 / torch.clamp(Lp, min=1e-6))[:, None]
-        cp = torch.zeros((N, R, 3), device=self.device)
+        cp = torch.zeros((N, R, 3), device=A.device)
         cp[..., 2] = b_err * active
         cp = cp.reshape(N, R * 3)
         lam_p = torch.zeros_like(cp)
@@ -323,15 +346,131 @@ class Engine:
             nxt = torch.zeros_like(x3)
             nxt[..., 2] = torch.clamp(x3[..., 2], min=0.0) * active
             lam_p = nxt.reshape(N, R * 3)
-        dpos = opt.dt * (M_inv @ (JfT @ lam_p[..., None]))[..., 0]
-        states = self._integrate(states, u_new, dpos)
+        return opt.dt * (M_inv @ (JfT @ lam_p[..., None]))[..., 0]
 
+    def _to_world(self, lam, idx, C):
+        """Solved rows [N,R,3] -> every row [N,KT,3], world frame: pruned rows
+        scattered back (zeros elsewhere), pair rows rotated out of their
+        contact frames (`engine.py:649-655`)."""
+        K = self.K
         if idx is not None:
-            lam = torch.zeros((N, self.KT, 3), device=self.device).scatter_(
+            lam = torch.zeros((lam.shape[0], self.KT, 3), device=lam.device).scatter_(
                 1, idx[:, :, None].expand(-1, -1, 3), lam)
-        if self.P:   # pair rows: contact frame -> world
+        if self.P:
             lam = torch.cat([lam[:, :K], torch.einsum("npab,npa->npb", C, lam[:, K:])], dim=1)
-        return states, lam
+        return lam
+
+    @staticmethod
+    def _energy_safeguard(A, b, lam):
+        """Rescale lam [N,R3] by t in [0, 1] so that the QP objective, the
+        post-impulse kinetic-energy change, is not positive (`engine.py:593-602`)."""
+        lAl = torch.sum(lam * (A @ lam[..., None])[..., 0], dim=-1)
+        t = torch.clamp(-torch.sum(b * lam, dim=-1) / torch.clamp(lAl, min=1e-12), 0.0, 1.0)
+        return lam * torch.where(lAl > 1e-12, t, 1.0)[:, None]
+
+    # --------------------------------------------------------- per-env step
+    def _solve_contacts(self, params: SimParams, M_inv, J, phi, u_plus, C, lam_warm=None):
+        """The per-env contact solve (`engine.py:501-655`) over the env batch:
+        u_plus [N,nv], M_inv [N,nv,nv], J [N,KT,3,nv], phi [N,KT], C [N,P,3,3],
+        lam_warm [N,KT,3] world frame (None: from zero). The `contact_cap`
+        active set is gathered (and the warm start with it), the Delassus
+        matrix regularised by `contact_reg`, and the impulses found by APGD
+        (from the projected warm start, theta from 1, Lipschitz bound over
+        active rows, then the energy safeguard) or by sequential projected
+        Gauss-Seidel over rows with 3x3 block inverses. Returns (u_new [N,nv],
+        impulses [N,KT,3] world frame, position correction [N,nv])."""
+        opt, K, nv = self.opt, self.K, self.nv
+        N = u_plus.shape[0]
+        if lam_warm is None:
+            lam_cf = torch.zeros((N, self.KT, 3), device=u_plus.device)
+        elif self.P:   # pair rows: world -> contact frame
+            lam_cf = torch.cat([lam_warm[:, :K], torch.einsum("npab,npb->npa", C, lam_warm[:, K:])], dim=1)
+        else:
+            lam_cf = lam_warm
+        idx = active_set_indices(opt, K, self.P, phi)                 # [N,R] | None
+        if idx is not None:
+            J = torch.gather(J, 1, idx[:, :, None, None].expand(-1, -1, 3, nv))
+            phi = torch.gather(phi, 1, idx)
+            lam_cf = torch.gather(lam_cf, 1, idx[:, :, None].expand(-1, -1, 3))
+        R = J.shape[1]
+        Jf = J.reshape(N, R * 3, nv)
+        JfT = Jf.transpose(1, 2)
+        A = Jf @ M_inv @ JfT                                           # [N,3R,3R]
+        A = A + torch.diag_embed(opt.contact_reg * torch.diagonal(A, dim1=1, dim2=2) + 1e-8)
+        active = (phi < opt.contact_margin).to(torch.float32)         # [N,R]
+        v0 = (Jf @ u_plus[..., None]).reshape(N, R, 3)
+        b = v0.clone()
+        b[..., 2] += params.restitution[:, None] * torch.clamp(v0[..., 2], max=0.0)
+        mu = params.friction[:, None]
+
+        def project(lam):                                              # [N,R,3]
+            ln = torch.clamp(lam[..., 2], min=0.0)
+            tn = torch.sqrt(lam[..., 0] ** 2 + lam[..., 1] ** 2)
+            scale = torch.clamp(mu * ln / torch.clamp(tn, min=1e-9), max=1.0)
+            return torch.stack([lam[..., 0] * scale, lam[..., 1] * scale, ln], dim=-1) * active[..., None]
+
+        bf = b.reshape(N, R * 3)
+        if opt.solver in ("apgd", "pallas"):      # "pallas" falls back here, as `engine.py:566`
+            act3 = torch.repeat_interleave(active, 3, dim=1)
+            L = torch.amax(act3 * torch.sum(torch.abs(A) * act3[:, None, :], dim=2), dim=1)
+            inv_L = (1.0 / torch.clamp(L, min=1e-6))[:, None]
+            x = x_prev = project(lam_cf).reshape(N, R * 3)
+            theta = torch.ones((), device=A.device)
+            for _ in range(opt.solver_iters):
+                theta_new = 0.5 * (torch.sqrt(theta ** 4 + 4 * theta ** 2) - theta ** 2)
+                beta = theta * (1.0 - theta) / (theta ** 2 + theta_new)
+                y = x + beta * (x - x_prev)
+                g = (A @ y[..., None])[..., 0] + bf
+                x_prev, x, theta = x, project((y - inv_L * g).reshape(N, R, 3)).reshape(N, R * 3), theta_new
+            lam = self._energy_safeguard(A, bf, x).reshape(N, R, 3)
+        else:    # "pgs", and any other value, as in JAX (an engine built for "lanes" solves per env by PGS)
+            blocks = A.reshape(N, R, 3, R, 3)
+            rows = torch.arange(R, device=A.device)
+            D = blocks[:, rows, :, rows, :].transpose(0, 1)            # [N,R,3,3]
+            eye = torch.eye(3, device=A.device)
+            reg = opt.contact_reg * torch.clamp(D[..., 2, 2], min=1e-6)[..., None, None] * eye
+            D_inv = torch.linalg.inv(D + reg + 1e-6 * eye)
+            lam = project(lam_cf)
+            for _ in range(opt.solver_iters):
+                for k in range(R):      # sequential over rows, each seeing the rows before it
+                    r = (blocks[:, k].reshape(N, 3, R * 3) @ lam.reshape(N, R * 3, 1))[..., 0] + b[:, k]
+                    step = lam[:, k] - opt.relaxation * (D_inv[:, k] @ r[..., None])[..., 0]
+                    ln = torch.clamp(step[:, 2], min=0.0)
+                    tn = torch.sqrt(step[:, 0] ** 2 + step[:, 1] ** 2)
+                    scale = torch.clamp(mu[:, 0] * ln / torch.clamp(tn, min=1e-9), max=1.0)
+                    lam[:, k] = torch.stack([step[:, 0] * scale, step[:, 1] * scale, ln], dim=-1) \
+                        * active[:, k, None]
+        u_new = u_plus + (M_inv @ (JfT @ lam.reshape(N, R * 3, 1)))[..., 0]
+        dpos = self._position_pass(A, phi, active, M_inv, JfT)
+        return u_new, self._to_world(lam, idx, C), dpos
+
+    def substep(self, params: SimParams, states: SimState, taus, lam_warm=None, paramsT=None):
+        """One physics step of every env with the per-env solve (`engine.py:807`):
+        dynamics, `_solve_contacts` (warm-started from `lam_warm` when
+        `opt.warm_start`), integration. Returns (states, impulses [N,KT,3]
+        world frame)."""
+        u_plus, M_inv, J, phi, C = self._pre_contact(params, states, taus, paramsT)
+        u_new, lam, dpos = self._solve_contacts(params, M_inv, J, phi, u_plus, C,
+                                                lam_warm if self.opt.warm_start else None)
+        return self._integrate(states, u_new, dpos), lam
+
+    def control_step(self, params: SimParams, states: SimState, torque_fn, decimation: int,
+                     pre_substep_fn=None, paramsT=None):
+        """`decimation` x (`pre_substep_fn`, torques, `substep`), the impulses
+        carried from substep to substep as the next warm start, then the
+        derived caches and the mean contact forces (`engine.py:833-861`).
+        torque_fn(states) -> [N,nd]; pre_substep_fn(states) -> states.
+        Returns (states, the last substep's torques)."""
+        lam = torch.zeros((states.root_pos.shape[0], self.KT, 3), device=self.device)
+        lam_acc, tau = torch.zeros_like(lam), None
+        for _ in range(decimation):
+            if pre_substep_fn is not None:
+                states = pre_substep_fn(states)
+            tau = torque_fn(states)
+            states, lam = self.substep(params, states, tau, lam, paramsT)
+            lam_acc = lam_acc + lam
+        cf = self.contact_forces_from_impulses(lam_acc, decimation)
+        return self.derived_state(params, states, contact_forces=cf), tau
 
     def contact_forces_from_impulses(self, lam, decimation: int = 1):
         """Impulses [N,KT,3] summed over `decimation` substeps -> mean per-body

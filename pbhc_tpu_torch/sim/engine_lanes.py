@@ -527,10 +527,13 @@ class LanesEngine:
         )
 
     def control_step_batched(self, params: SimParams, states: SimState, torque_fn,
-                             decimation: int, paramsT=None):
+                             decimation: int, paramsT=None, pre_substep_fn=None):
         """`engine_lanes.py:716`: `decimation` substeps with env-first state at
-        the boundary. torque_fn(states_env_first) -> [N,nd]. Pass `paramsT`
-        (from `params_to_lanes`) to skip the per-call re-layout."""
+        the boundary. torque_fn(states_env_first) -> [N,nd]; pre_substep_fn
+        (states_env_first) -> states, run before each substep's torques (the
+        soft-dynamic-correction hook). Both see the body caches of the step's
+        start, as in JAX. Pass `paramsT` (from `params_to_lanes`) to skip the
+        per-call re-layout."""
         N = states.root_pos.shape[0]
         if paramsT is None:
             paramsT = self.params_to_lanes(params)
@@ -545,6 +548,8 @@ class LanesEngine:
         lam_acc = torch.zeros_like(lam)
         tau = None
         for _ in range(decimation):
+            if pre_substep_fn is not None:
+                stT = self._to_lanes(pre_substep_fn(view(stT)))
             tau = torque_fn(view(stT))
             stT, lam = self._substep(paramsT, stT, tau.T, lam if self.opt.warm_start else None)
             lam_acc = lam_acc + lam

@@ -11,7 +11,10 @@ The KungfuBot2 networks (Conv1d through cuDNN, the flax-numerics LayerNorm,
 the MLPs) on the card against the CPU, TF32 off for matmul and cuDNN: 1e-5
 per unit of each output's largest magnitude (the two devices sum products in
 different orders; tests/test_torch_mimic.py holds the CPU to flax the same
-way).
+way); the MoE and phase-aware networks the same. The per-env engine (`apgd`,
+`pgs`: plain PyTorch on both devices) and a lanes control step with soft
+dynamic correction (kernel 1 against its plain version inside it): 1e-3 of
+each field's scale, chip_smoke.py's control-step bound.
 """
 import numpy as np
 import pytest
@@ -241,3 +244,87 @@ def test_mimic_networks_on_card_match_cpu(cuda_device):
     for want, got in pairs:
         want = want.numpy()
         np.testing.assert_allclose(got.cpu().numpy(), want, atol=1e-5 * max(1.0, np.abs(want).max()))
+
+
+def _v1_env(n, device, ovs=()):
+    from pbhc_tpu_torch.config.loader import compose
+    from pbhc_tpu_torch.envs.tracking_env import MotionTrackingEnv
+
+    sels = ["exp=motion_tracking", "robot=g1_23dof", "obs=motion_tracking", "rewards=motion_tracking",
+            "domain_rand=main", "simulator=tpu"]
+    cfg = compose(sels, [f"num_envs={n}", "robot.motion.motion_file=assets/motions/Horse-stance_punch.pkl", *ovs])
+    return MotionTrackingEnv(cfg, n, device=device, seed=0)
+
+
+def _step_rel(a, b):
+    """Largest difference of two SimStates relative to each field's scale."""
+    return max(float((getattr(a, f).cpu() - getattr(b, f).cpu()).abs().max()) / max(1.0, float(getattr(b, f).abs().max()))
+               for f in ("root_pos", "root_quat", "root_lin_vel", "root_ang_vel", "dof_pos", "dof_vel"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["apgd", "pgs"])
+def test_per_env_control_step_on_card_matches_cpu(cuda_device, solver):
+    """One per-env control step at 256 envs (settled for 5 steps on the card),
+    the same state and torques on the card and on the CPU."""
+    env = _v1_env(256, cuda_device, [f"simulator.config.solver={solver}"])
+    assert env.physics == "per_env"
+    state = env.reset_to_start(env.init_state())
+    zero = torch.zeros((256, env.nd), device=cuda_device)
+    with torch.no_grad():
+        for _ in range(5):
+            state, _, _, _, _ = env.step(state, zero)
+    eng, params = env.engine, env.sim_params
+    kp, kd, target = env.p_gains, env.d_gains, state.default_dof_pos
+
+    def pd(st):
+        return torch.clamp(kp.to(st.dof_pos.device) * (target.to(st.dof_pos.device) - st.dof_pos)
+                           - kd.to(st.dof_pos.device) * st.dof_vel, -60.0, 60.0)
+
+    card, _ = eng.control_step(params, state.sim, pd, env.decimation)
+    from pbhc_tpu_torch.sim.engine import Engine, tree_map
+
+    cpu_eng = Engine(eng.model, eng.opt, device="cpu")
+    cpu, _ = cpu_eng.control_step(tree_map(lambda x: x.cpu(), params), tree_map(lambda x: x.cpu(), state.sim),
+                                  pd, env.decimation)
+    assert float(cpu.contact_forces.abs().sum()) > 0 and _step_rel(card, cpu) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_sdc_lanes_control_step_kernel_matches_plain(cuda_device):
+    """A lanes control step with soft dynamic correction (alpha 0.1) at 4096
+    envs, kernel 1 against its plain version as the solve."""
+    env = _v1_env(4096, cuda_device, ["env.config.soft_dynamic_correction.enable=true"])
+    state = env.reset_to_start(env.init_state())
+    zero = torch.zeros((4096, env.nd), device=cuda_device)
+    with torch.no_grad():
+        for _ in range(5):
+            state, _, _, _, _ = env.step(state, zero)
+    outs = {}
+    for name, solve in (("kernel", ck.apgd_lanes), ("plain", ck.apgd_lanes_plain)):
+        env.lanes_engine.contact_solve = solve
+        pre = env._sdc_pre_fn(state, state.sim)
+        outs[name], _ = env.lanes_engine.control_step_batched(
+            env.sim_params, state.sim, lambda st: torch.zeros_like(st.dof_pos), env.decimation,
+            paramsT=env.paramsT, pre_substep_fn=pre)
+    env.lanes_engine.contact_solve = ck.apgd_lanes
+    assert _step_rel(outs["kernel"], outs["plain"]) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_moe_and_phase_aware_networks_on_card_match_cpu(cuda_device):
+    from pbhc_tpu_torch.agents.networks import MoEMLP, PhaseAwareActor, PhaseAwareCritic, flax_init_
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((512, 380), generator=g)
+    x[:, 100] = torch.rand((512,), generator=g)
+    for net in (MoEMLP(380, (256, 128), 23, 4, 2), PhaseAwareActor(380, (256, 128), 23, 100, embed_type="Learnable"),
+                PhaseAwareCritic(380, (256, 128), 21, 100)):
+        flax_init_(net, torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            want = net(x)
+            got = net.to(cuda_device)(x.to(cuda_device))
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for w, o in zip(want, got):
+            np.testing.assert_allclose(o.cpu().numpy(), w.numpy(), atol=1e-5 * max(1.0, float(w.abs().max())))

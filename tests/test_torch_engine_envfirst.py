@@ -171,7 +171,17 @@ def test_env_pallas_ten_control_steps():
 
 
 def test_env_pallas_needs_multiple_of_128_envs():
+    """Kernel 2's batched step needs N % 128 == 0; at other N `solver: pallas`
+    takes the per-env branch, as the JAX env does (`tracking_env.py:874-896`;
+    its parity: tests/test_torch_engine_perenv.py)."""
     cfg = compose(SELS, ["num_envs=64", f"robot.motion.motion_file={MOTION}",
                          "simulator.config.solver=pallas"])
-    with pytest.raises(NotImplementedError, match="multiple of 128"):
-        MotionTrackingEnv(cfg, 64, device="cpu")
+    env = MotionTrackingEnv(cfg, 64, device="cpu")
+    assert env.physics == "per_env" and env.engine.opt.solver == "pallas"
+    assert MotionTrackingEnv(compose(SELS, [f"num_envs={N}", f"robot.motion.motion_file={MOTION}",
+                                            "simulator.config.solver=pallas"]), N, device="cpu").physics == "batched"
+    state = env.reset_to_start(env.init_state())
+    state.history = env.compute_observations(state)[1]
+    before = ck.apgd_envfirst.launches
+    state, _, _, _, _ = env.step(state, torch.zeros((64, env.nd)))
+    assert bool(torch.isfinite(state.sim.dof_vel).all()) and ck.apgd_envfirst.launches == before

@@ -20,20 +20,24 @@ Tolerances:
   clip: 1e-3 relative (over 64 steps the two trajectories stay within
   ~1e-5 of each other, and the families within ~1e-5 relative); the
   completion ratio exactly;
-- the families over a whole clip (the horse-stance run, 348 steps): 2e-2
-  relative. The two rollouts stay within 1e-6 rad for 60 steps, then part
-  at a step that is not continuous in the state (a contact event, as in
-  tests/test_torch_terrain.py; 3.4 rad/s in a joint velocity after step
-  180), and the families average what follows: measured up to 0.9%
-  apart. The reference families (L2_ref_*) do not depend on the rollout:
-  1e-5 relative.
+- a whole clip (the horse-stance run, 348 steps): the two rollouts are
+  held to `SIM_TOL` step by step until they first part; where they part,
+  JAX's own step must jump by more than `SIM_TOL` when its state is nudged
+  by 1e-5 m at the root (a contact event: step 89 on one CPU, ~1.05 rad/s
+  in a joint velocity, the same in both). From there the two trajectories
+  are two samples of a chaotic rollout, so each rollout family is held to
+  max(2e-2 relative, twice the distance between JAX's own run and JAX's
+  run from a start nudged by 1e-5 m), computed in the test. The reference
+  families (L2_ref_*) do not depend on the rollout: 1e-5 relative.
 """
+import dataclasses
 import json
 import pickle
 import shutil
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -236,14 +240,97 @@ def test_sample_episodes_matches_jax(tmp_path):
         batch_eval.main([f"checkpoint={ckpt}", "mode=nope", "device=cpu"])
 
 
+class _NudgedEnvsRecorder:
+    """An eval callback for `rollout_jax` that keeps each step's pre-step env
+    state, actions and post-step state, and the trajectories of envs 1 and 2
+    in `rollout_jax`'s keys (env 0 is the one `rollout_jax` records)."""
+
+    def __init__(self, env):
+        self.env, self.steps = env, []
+        self.traj = {e: {k: [] for k in eval_agent.TRAJ_KEYS} for e in (1, 2)}
+
+    def on_pre_evaluate_policy(self):
+        pass
+
+    def on_post_evaluate_policy(self):
+        pass
+
+    def on_pre_eval_env_step(self, actor_state):
+        self.steps.append([actor_state["env_state"], actor_state["actions"], None])
+        return actor_state
+
+    def on_post_eval_env_step(self, actor_state):
+        state = self.steps[-1][2] = actor_state["env_state"]
+        sim = state.sim
+        body_pos, body_quat, _, _ = self.env._extend_body_states(sim)
+        for e, traj in self.traj.items():
+            for k, v in (("root_pos", sim.root_pos), ("root_rot", sim.root_quat), ("dof_pos", sim.dof_pos),
+                         ("body_pos", body_pos), ("body_rot", body_quat), ("contact_mask", state.contacts_filt),
+                         ("dof_vel", sim.dof_vel), ("root_lin_vel", sim.root_lin_vel),
+                         ("root_ang_vel", sim.root_ang_vel), ("action", actor_state["actions"])):
+                traj[k].append(np.asarray(v[e]))
+        return actor_state
+
+
 def test_horse_stance_pose_scored_by_sample_episodes():
     """The second committed MHPPO run, from its committed snapshot, over its
-    whole clip (7 s, 348 control steps), 2 envs: the port's families against
-    JAX's. `sample_episodes` writes nothing beside the checkpoint."""
+    whole clip (7 s, 348 control steps). The port's rollout is held to JAX's
+    step by step until the two first part, which must be at a step where
+    JAX's own step jumps under a 1e-5 m nudge of its state; then the port's
+    `sample_episodes` families (2 envs) are held to JAX's within the spread
+    JAX's own families show when its start is nudged by +-1e-5 m at the
+    root. The randomness is off, so JAX's envs 1 and 2 run those nudged
+    starts beside env 0 in one rollout. `sample_episodes` writes nothing
+    beside the checkpoint."""
     ckpt = "artifacts/kb1_horse_stance_pose/ckpt/model_7000.pkl"
-    want = jax_eval.sample_episodes(ckpt, num_envs=2, episodes=2, overrides=OFF)
+    ovs = OFF + list(batch_eval.NO_TERMINATION)
+    jenv, algo, payload = jax_eval._load(ckpt, 3, ovs)
+    params = payload["actor_params"]
+    steps = int(float(jenv.motion_lib.data.lengths[0]) / jenv.dt)
+
+    def nudged(js, dz):
+        return dataclasses.replace(js, sim=dataclasses.replace(js.sim, root_pos=js.sim.root_pos.at[:, 2].add(dz)))
+
+    reset = jenv.reset_to_start
+    jenv.reset_to_start = lambda state, k: nudged(reset(state, k), jnp.asarray([0.0, 1e-5, -1e-5]))
+    rec = _NudgedEnvsRecorder(jenv)
+    # the key of jax_eval.sample_episodes' one episode
+    traj, ref, _ = jax_agent.rollout_jax(jenv, algo.actor, params, steps, jax.random.PRNGKey(100), callbacks=[rec])
+    jenv.reset_to_start = reset
+
+    def families(tr):
+        return {**jax_metrics.eval_accuracy(tr, ref, jenv.dt), **jax_metrics.eval_smoothness(tr, jenv.dt, ref=ref)}
+
+    want = families(traj)
+    spread = [families({k: np.stack(v) for k, v in rec.traj[e].items()}) for e in (1, 2)]
+
+    # the port step by step against JAX's env 0, until they part
+    tenv, actor, _ = batch_eval.load(ckpt, 2, ovs, device="cpu")
+    ts, tobs = batch_eval.start_episodes(tenv)
+    jstep = jax.jit(jenv.step)
+    parted = None
+    for i, (before, ja, after) in enumerate(rec.steps):
+        with torch.no_grad():
+            ts, tobs, _, _, _ = tenv.step(ts, actor(tobs["actor_obs"])[0])
+        far = {f: float(np.abs(getattr(ts.sim, f).numpy()[0] - np.asarray(getattr(after.sim, f))[0]).max()) - tol
+               for f, tol in SIM_TOL.items()}
+        if max(far.values()) > 0:
+            parted = i
+            jump = max(float(np.abs(np.asarray(jstep(nudged(before, dz), ja)[0].sim.dof_vel)[0]
+                                    - np.asarray(after.sim.dof_vel)[0]).max()) for dz in (1e-5, -1e-5))
+            assert jump > SIM_TOL["dof_vel"], (i, far, jump)
+            break
+    assert parted is None or parted >= 20
+
     got = batch_eval.sample_episodes(ckpt, num_envs=2, episodes=2, overrides=OFF, device="cpu")
-    _close_families({k: v["mean"] for k, v in got.items()}, {k: v["mean"] for k, v in want.items()}, rel=2e-2)
+    assert sorted(got) == sorted(want)
+    for k, j in want.items():
+        t = got[k]["mean"]
+        if k.startswith("L2_ref_"):
+            assert t == pytest.approx(j, rel=1e-5), k
+        else:
+            bound = max(2e-2 * abs(j), 2.0 * max(abs(s[k] - j) for s in spread))
+            assert np.isfinite(t) and abs(t - j) <= bound, (k, t, j, [s[k] for s in spread], parted)
 
 
 def test_callbacks_and_dashboard_logger(tmp_path):

@@ -8,10 +8,14 @@ drives a few control steps of the serving loop, does the same for the
 KungfuBot2 teacher (`GeneralTrackingEnv`, `MimicActorCritic`) at 32 envs
 and for the heightfield-terrain run `terrain_walk_v3` at 16 envs, runs the
 training CLI (`python -m pbhc_tpu_torch.train`) for one iteration: MHPPO at
-128 envs, and a KungfuBot2 student distilled from the committed teacher (its
-config read from the snapshot) at 32 envs, and runs the evaluation CLI
-(`python -m pbhc_tpu_torch.eval_agent`) on a copy of the side-kick run with
-its clip cut to 20 frames.
+128 envs, a KungfuBot2 student distilled from the committed teacher (its
+config read from the snapshot) at 32 envs, a KungfuBot2 teacher with MoE
+backbones and a phase-aware MHPPO run at 16 envs, steps the v1 env at 16
+envs on the per-env engine (`pgs`; `apgd` with soft dynamic correction; the
+OU observation noise and the close-to-limit terminations), steps the
+simulator facade, and runs the evaluation CLI (`python -m
+pbhc_tpu_torch.eval_agent`) on a copy of the side-kick run with its clip cut
+to 20 frames.
 """
 import ast
 import subprocess
@@ -83,6 +87,39 @@ SCRIPT = textwrap.dedent("""
                 "algo.config.num_learning_iterations=1", "device=cpu", "base_dir={base_dir}",
                 "artifact_dir={base_dir}/art", "experiment_name=student"]
     runpy.run_module("pbhc_tpu_torch.train", run_name="__main__")
+    small = ["num_envs=16", "algo.config.num_steps_per_env=4", "algo.config.num_learning_iterations=1",
+             "device=cpu", "base_dir={base_dir}", "artifact_dir={base_dir}/art"]
+    sys.argv = ["pbhc_tpu_torch.train", "exp=general_tracking", "robot=g1_23dof_student",
+                "obs=general_tracking_teacher", "rewards=general_tracking", "domain_rand=main", "simulator=tpu",
+                "robot.motion.motion_file=assets/motions/g1_ue_walk_23dof.pkl", "experiment_name=moe",
+                "algo.config.module_dict.actor.layer_config.type=MoEMLP",
+                "algo.config.module_dict.critic.layer_config.type=MoEMLP"] + small
+    runpy.run_module("pbhc_tpu_torch.train", run_name="__main__")
+    v1 = ["exp=motion_tracking", "robot=g1_23dof", "obs=motion_tracking", "rewards=motion_tracking",
+          "domain_rand=main", "simulator=tpu"]
+    horse = "robot.motion.motion_file=assets/motions/Horse-stance_punch.pkl"
+    sys.argv = ["pbhc_tpu_torch.train", *v1, horse, "experiment_name=phase",
+                "algo.config.phase_embed.type=Sinusoidal"] + small
+    runpy.run_module("pbhc_tpu_torch.train", run_name="__main__")
+    import json
+    from pbhc_tpu_torch.config.loader import compose
+    from pbhc_tpu_torch.envs.tracking_env import MotionTrackingEnv
+    from pbhc_tpu_torch.sim.simulator import EngineSimulator
+    ou = {{"enable": True, "kwargs": {{"theta": 1.0, "sigma": 1.0}}}}
+    for ovs in (["simulator.config.solver=pgs"],
+                ["simulator.config.solver=apgd", "env.config.soft_dynamic_correction.enable=true"],
+                ["obs.noise_process=" + json.dumps(ou),
+                 "env.config.termination.terminate_when_close_to_torque_limit=true"]):
+        env = MotionTrackingEnv(compose(v1, ["num_envs=16", horse] + ovs), 16, device="cpu")
+        state = env.reset_to_start(env.init_state())
+        obs, state.history = env.compute_observations(state)
+        for _ in range(2):
+            state, obs, _, _, _ = env.step(state, torch.zeros((16, env.nd)))
+        assert torch.isfinite(state.sim.dof_pos).all() and torch.isfinite(obs["actor_obs"]).all()
+    sim = EngineSimulator(env.engine, 2)
+    sim.simulate_at_each_physics_step()
+    sim.refresh_sim_tensors()
+    assert sim.robot_root_states.shape == (2, 13)
     sys.argv = ["pbhc_tpu_torch.eval_agent", f"checkpoint={{run}}/ckpt/model_10500.pkl", "device=cpu",
                 f"robot.motion.motion_file={{run.parent}}/short.pkl"]
     runpy.run_module("pbhc_tpu_torch.eval_agent", run_name="__main__")
@@ -99,7 +136,7 @@ def test_port_runs_without_jax_yaml_joblib_lxml(tmp_path):
                          timeout=600)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "ISOLATION OK" in out.stdout
-    assert out.stdout.count("[it 1/1]") == 2 and len(list(tmp_path.glob("PBHC_TPU/*/ckpt/model_1.pkl"))) == 2
+    assert out.stdout.count("[it 1/1]") == 4 and len(list(tmp_path.glob("PBHC_TPU/*/ckpt/model_1.pkl"))) == 4
 
 
 def _imported_roots(path):

@@ -147,7 +147,14 @@ def test_convert_rejects_other_architectures():
 
 
 def test_moe_backbone_is_refused():
+    """A `MoEMLP` backbone builds (its parity is tests/test_torch_moe.py);
+    a backbone type the JAX package does not know is refused."""
     cfg = Cfg.wrap(apply_overrides(load_snapshot("kb2_teacher23_r3"),
                                    ["algo.config.module_dict.actor.layer_config.type=MoEMLP"]))
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        mimic_net_from_config(cfg, 23)
+    net = mimic_net_from_config(cfg, 23)
+    assert type(net.actor.backbone).__name__ == "MoEMLP" and len(net.actor.backbone.experts) == 4
+    assert type(net.critic).__name__ == "MLP"
+    other = Cfg.wrap(apply_overrides(load_snapshot("kb2_teacher23_r3"),
+                                     ["algo.config.module_dict.critic.layer_config.type=Transformer"]))
+    with pytest.raises(ValueError, match="unknown backbone type"):
+        mimic_net_from_config(other, 23)

@@ -81,8 +81,9 @@ def _primed(jalgo, talgo, cfg, ap, cp, seed):
         opt = _set_lr(jalgo.tx.init(p), lr)
         upd, opt = jalgo.tx.update(g, opt, p)
         jax_side += [optax.apply_updates(p, upd), opt]
-    actor = convert.from_flax(ap, actor_from_config(cfg, talgo.actor_dim, talgo.num_act))
-    critic = convert.from_flax(cp, critic_from_config(cfg, talgo.critic_dim, talgo.num_rew))
+    actor = convert.from_flax(ap, actor_from_config(cfg, talgo.actor_dim, talgo.num_act, talgo.phase_pos["actor_obs"]))
+    critic = convert.from_flax(cp, critic_from_config(cfg, talgo.critic_dim, talgo.num_rew,
+                                                      talgo.phase_pos["critic_obs"]))
     ts = talgo.new_train_state(actor, critic)
     for net, opt, g in ((actor, ts.actor_opt, grads[0]), (critic, ts.critic_opt, grads[1])):
         sd = convert.state_dict_from_flax(g, net)
