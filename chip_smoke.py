@@ -29,7 +29,12 @@ holds every CUDA kernel they launch against its plain PyTorch version:
   `solver: apgd` (plain PyTorch solves, no kernel, as in JAX);
 - the options no committed run selects: soft dynamic correction on the lanes
   engine, KungfuBot2 training with MoE backbones, MHPPO training with
-  phase-aware networks (kernel 1).
+  phase-aware networks (kernel 1);
+- deploy: `pbhc_tpu_torch.deploy.export.main(["student", ...])`, the export
+  CLI, on the committed KungfuBot2 student, then that student served at its
+  own 2048 envs (kernel 1) with env 0's deploy inputs rebuilt on the host by
+  `StudentObsBuilder` and run by both host executors of the export, the
+  side-kick's exports on the host executors, and the teleop hook of the env.
 Phases, each announced when it starts and when it ends:
 
   build            - compile both kernels from `pbhc_tpu_torch/csrc/` (nvcc, sm_90a, in parallel)
@@ -67,6 +72,10 @@ Phases, each announced when it starts and when it ends:
   update-kb2-moe   - one PPOMimic RL minibatch update of the MoE nets on the card and on the CPU
   eval-agent       - the evaluation CLI on a copy of the side-kick run; its export against the
                      CPU's, its completion ratio and families against the JAX package's
+  deploy           - the student export on the card against the CPU's and the JAX package's hash;
+                     the student's deploy chain over 100 control steps at 2048 envs (launches counted
+                     from 0); the side-kick's host executors against its actor on the card; the teleop
+                     hook at 4096 envs; the host cores' tick; one JSON line {"deploy": ...}
   report           - the `kernels` JSON line, the card line, the final result line
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
@@ -193,6 +202,32 @@ APGD_RATIO_BAND = 0.02
 EVAL_JAX_COMPLETION = 1.0
 EVAL_JAX_FAMILIES = {"E_mpbpe": 66.35258483886719, "E_mpjpe": 827.0711669921875}
 EVAL_REL_BAND = 0.02
+# - deploy: the committed KungfuBot2 student, exported by the JAX package
+#   (python -m pbhc_tpu.deploy.export student <STUDENT_CKPT> <out>): the
+#   SHA-256 of its ONNX bytes (tests/test_torch_deploy.py pins it on the CPU)
+STUDENT_CKPT = "artifacts/kb2_student23_r3/ckpt/model_8000.pkl"
+STUDENT_ONNX_SHA256 = "7c90c7627fe76981680fdb4609000d4de4cbba82b4d6197b4e2adb01343457f5"
+DEPLOY_STEPS = 100
+DEPLOY_MIN_COMPARED = 50
+# - the builder's deploy inputs against the env's row 0: 2e-4, the JAX
+#   package's own bound (tests/test_student_obs.py): the builder interpolates
+#   the reference on the host in float64 and normalises its quaternions, the
+#   env in float32 on the card.
+DEPLOY_OBS_ATOL = 2e-4
+# - each host executor against the port's torch student on the card, on the
+#   same deploy inputs: 1e-4 (cuDNN Conv1d and cuBLAS with TF32 off against
+#   float32 numpy and the native core on the host, the kernel-parity bound);
+#   the side-kick's executors against its `GaussianActor` on the card the same.
+#   The executors on the built inputs against the rollout's own action (on the
+#   env's inputs) also carry the inputs' difference, which the student
+#   amplifies (1.8e-4 from 1.4e-4, on the CPU and on the card): printed as
+#   `chain_*`, not gated; the two gates above hold each link of that chain.
+DEPLOY_ACT_ATOL = 1e-4
+# the student run's observation noise and the randomisations of
+# tests/test_torch_env.py::OFF off (tests/test_student_obs.py's noise list)
+STUDENT_OFF = ["obs.noise_scales.base_ang_vel=0", "obs.noise_scales.dof_pos=0", "obs.noise_scales.dof_vel=0",
+               "obs.noise_scales.roll_pitch=0"] + [o for o in EVAL_OFF if o.startswith("domain_rand.")]
+TELEOP = ["env.config.use_teleop_control=true", "env.config.teleop_port=0"]
 
 
 def log(msg):
@@ -288,6 +323,71 @@ def mimic_update_batch(torch, algo, ts, cpu, n):
     actions = mean + std * rn(*mean.shape)
     return dict(obs, actions=actions, logp=gaussian_log_prob(mean, std, actions), mean=mean, std=std,
                 values=values, returns=values + 0.3 * rn(*values.shape), advantages=rn(n))
+
+
+def student_deploy_chain(torch, env, net, onnx, steps):
+    """Roll the student `net` (deterministic, history latent) in `env` for
+    `steps` control steps from clip start. At each step until env 0's first
+    `done`, copy env 0's state to the host, build its three deploy inputs
+    with `StudentObsBuilder` (`compensate_offsets=False`, fed by a
+    `MotionHost` over the env's `MotionLib`), and run both host executors of
+    the export `onnx` on them. Returns the steps compared and the largest
+    differences: each input against the env's row 0 (`obs_*`); each
+    executor against the torch student on the env's device on the same
+    inputs (`exec_*`) and against the rollout's own action for env 0
+    (`chain_*`, which also carries the inputs' difference)."""
+    import numpy as np
+
+    from pbhc_tpu_torch.deploy.export import StudentPolicy, student_meta
+    from pbhc_tpu_torch.deploy.student_obs import MotionHost, StudentObsBuilder
+    from pbhc_tpu_torch.eval import batch_eval
+    from pbhc_tpu_torch.maths import rotations as rot
+
+    builder = StudentObsBuilder(student_meta(env), MotionHost(env.motion_lib), compensate_offsets=False)
+    executors = {"numpy": StudentPolicy(onnx), "native": StudentPolicy(onnx, native=True)}
+    err = dict.fromkeys([f"obs_{k}" for k in ("actor_obs", "future_motion_targets", "prop_history")]
+                        + [f"{kind}_{name}" for kind in ("exec", "chain") for name in executors], 0.0)
+    compared, done_at = 0, None
+    state, obs = batch_eval.start_episodes(env)
+    host = lambda x: x.detach().cpu().numpy()
+    with torch.no_grad():
+        for i in range(steps):
+            action = batch_eval.act_mean(net, obs)
+            if done_at is None:
+                sim = state.sim
+                robot = type("Robot", (), dict(
+                    q=host(sim.dof_pos[0]), dq=host(sim.dof_vel[0]), quat_xyzw=host(sim.root_quat[0]),
+                    base_ang_vel_local=host(rot.quat_rotate_inverse(sim.root_quat[:1], sim.root_ang_vel[:1])[0]),
+                    last_action=host(state.actions[0])))
+                t = float(state.episode_length[0]) * env.dt + float(state.motion_start_times[0])
+                feeds = builder.build(robot, t)
+                for k, v in feeds.items():
+                    err[f"obs_{k}"] = max(err[f"obs_{k}"], float(np.abs(v[0] - host(obs[k][0])).max()))
+                on_card = host(net.act({k: torch.as_tensor(v, device=env.device) for k, v in feeds.items()},
+                                       True)[0][0])
+                for name, pol in executors.items():
+                    a = pol(feeds)
+                    err[f"exec_{name}"] = max(err[f"exec_{name}"], float(np.abs(a - on_card).max()))
+                    err[f"chain_{name}"] = max(err[f"chain_{name}"], float(np.abs(a - host(action[0])).max()))
+                compared += 1
+            state, obs, _, done, _ = env.step(state, action)
+            if done_at is None and bool(done[0]):
+                done_at = i
+    return dict(compared=compared, env0_done_at=done_at, **err)
+
+
+def host_tick_us(fn, calls=1000):
+    """Median wall time of one call of `fn()`, in microseconds, over `calls`
+    calls after one warm-up call (the host clock: these run on the host)."""
+    import statistics
+
+    fn()
+    ticks = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        ticks.append(time.perf_counter() - t0)
+    return statistics.median(ticks) * 1e6
 
 
 def main():
@@ -855,6 +955,108 @@ def main():
                 log(f"FAIL: eval-agent: {k} {fams[k]:.5f} outside {v} +- {EVAL_REL_BAND:.0%}")
                 ok = False
         del env, actor
+    torch.cuda.empty_cache()
+
+    with phase("deploy"):
+        import hashlib
+
+        from pbhc_tpu_torch.deploy import export
+        from pbhc_tpu_torch.deploy.native import NativePolicy
+        from pbhc_tpu_torch.deploy.native.onnx_exec import NativeOnnxPolicy
+        from pbhc_tpu_torch.deploy.onnx_numpy import OnnxPolicy
+        from pbhc_tpu_torch.deploy.teleop import TeleopSource
+
+        t_deploy = time.perf_counter()
+        base = os.path.join(REPO, "build", "chip_smoke", "deploy")
+        shutil.rmtree(base, ignore_errors=True)
+        # 1. the export CLI on the card, and on the CPU in this process
+        onnx = export.main(["student", STUDENT_CKPT, os.path.join(base, "student.onnx")])
+        cpu_onnx = export.main(["student", STUDENT_CKPT, os.path.join(base, "cpu", "student.onnx"), "device=cpu"])
+        data = onnx.read_bytes()
+        meta = json.loads(open(str(onnx) + ".meta.json").read())
+        same_cpu = data == cpu_onnx.read_bytes() and meta == json.loads(open(str(cpu_onnx) + ".meta.json").read())
+        sha = hashlib.sha256(data).hexdigest()
+        log(f"deploy: student export {len(data)} bytes, sha256 {sha} (JAX {STUDENT_ONNX_SHA256}); "
+            f"ONNX and meta equal to the CPU's: {same_cpu}")
+        if not same_cpu or sha != STUDENT_ONNX_SHA256:
+            log("FAIL: deploy: the card's student export differs from the CPU's or from the JAX package's")
+            ok = False
+        # 2. the student's deploy chain at its own 2048 envs
+        env, net, _ = batch_eval.load(STUDENT_CKPT, KB2_ENVS, STUDENT_OFF, device=dev)
+        chain = count("deploy", lambda: student_deploy_chain(torch, env, net, onnx, DEPLOY_STEPS))
+        expect_launches("deploy", {"apgd_lanes": 4 * DEPLOY_STEPS, "apgd_envfirst": 0})
+        log(f"deploy: student chain over {DEPLOY_STEPS} steps at {KB2_ENVS} envs: " + json.dumps(chain))
+        obs_worst = max(v for k, v in chain.items() if k.startswith("obs_"))
+        exec_worst = max(v for k, v in chain.items() if k.startswith("exec_"))
+        if chain["compared"] < DEPLOY_MIN_COMPARED:
+            log(f"FAIL: deploy: only {chain['compared']} steps compared (want >= {DEPLOY_MIN_COMPARED})")
+            ok = False
+        if not obs_worst <= DEPLOY_OBS_ATOL:
+            log(f"FAIL: deploy: deploy inputs {obs_worst:.3e} from the env's (tol {DEPLOY_OBS_ATOL:g})")
+            ok = False
+        if not exec_worst <= DEPLOY_ACT_ATOL:
+            log(f"FAIL: deploy: a host executor {exec_worst:.3e} from the card's student (tol {DEPLOY_ACT_ATOL:g})")
+            ok = False
+        student_feeds = {k: np.zeros((1, int(v)), np.float32) for k, v in
+                         (("actor_obs", meta["obs_dim"]), *((k, env.obs_dim(k)) for k in
+                                                            ("future_motion_targets", "prop_history")))}
+        del env, net
+        torch.cuda.empty_cache()
+        # 3. the side-kick's exports (eval-agent's) on the host executors, on
+        #    the observations of 64 envs of one serving step
+        exported = os.path.join(REPO, "build", "chip_smoke", "eval-agent", "card", EVAL_RUN, "exported")
+        npz, sk_onnx = os.path.join(exported, "model_10500.npz"), os.path.join(exported, "model_10500.onnx")
+        env, actor, _ = batch_eval.load(CKPT, 64, device=dev)
+        state, obs = batch_eval.start_episodes(env)
+        with torch.no_grad():
+            state, obs, _, _, _ = env.step(state, actor(obs["actor_obs"])[0])
+            mean = actor(obs["actor_obs"])[0].cpu().numpy()
+        sk_obs = obs["actor_obs"].cpu().numpy()
+        side_kick = {"NativePolicy": float(np.abs(NativePolicy(npz)(sk_obs) - mean).max()),
+                     "OnnxPolicy": float(np.abs(OnnxPolicy(sk_onnx)(sk_obs) - mean).max())}
+        log(f"deploy: side-kick host executors against its actor on the card, 64 envs: {side_kick}")
+        if not max(side_kick.values()) <= DEPLOY_ACT_ATOL:
+            log("FAIL: deploy: a side-kick host executor disagrees with the card's actor")
+            ok = False
+        del env, actor, state, obs
+        # 4. the teleop hook at 4096 envs: two control steps, one marker set over UDP
+        env, actor, _ = batch_eval.load(CKPT, NUM_ENVS, TELEOP, device=dev)
+        try:
+            state, obs = batch_eval.start_episodes(env)
+            state, _, nonfinite = batch_eval.rollout_ratio(env, actor, state, obs, 2)
+            coords = np.arange(9, dtype=np.float64).reshape(3, 3) / 10
+            TeleopSource.send(coords, port=env.teleop_source.addr[1])
+            t0 = time.perf_counter()
+            while not np.array_equal(env.teleop_source.coords, coords) and time.perf_counter() - t0 < 1.0:
+                time.sleep(0.005)
+            waited = time.perf_counter() - t0
+            received = bool(np.array_equal(env.teleop_source.coords, coords))
+            finite = bool(torch.isfinite(state.sim.dof_pos).all()) and int(nonfinite) == 0
+        finally:
+            env.close()
+        log(f"deploy: teleop at {NUM_ENVS} envs: marker buffer {env.teleop_marker_coords.shape}, datagram "
+            f"received {received} in {waited:.4f} s, state finite {finite}")
+        if not (received and finite and env.teleop_marker_coords.shape == (NUM_ENVS, 3, 3)):
+            log("FAIL: deploy: the teleop listener missed the marker set, or the state is not finite")
+            ok = False
+        del env, actor, state
+        torch.cuda.empty_cache()
+        # 5. the host cores' tick at batch 1 (the robot's control tick)
+        sk_row = sk_obs[0]
+        ticks = {"NativePolicy side-kick .npz": host_tick_us(lambda p=NativePolicy(npz): p(sk_row)),
+                 "NativeOnnxPolicy student": host_tick_us(lambda p=NativeOnnxPolicy(onnx, meta): p.run(student_feeds)),
+                 "OnnxPolicy student": host_tick_us(lambda p=OnnxPolicy(onnx, meta): p.run(student_feeds)),
+                 "NativeOnnxPolicy side-kick": host_tick_us(lambda p=NativeOnnxPolicy(sk_onnx): p(sk_row)),
+                 "OnnxPolicy side-kick": host_tick_us(lambda p=OnnxPolicy(sk_onnx): p(sk_row))}
+        deploy = {"student_steps_compared": chain["compared"], "env0_done_at": chain["env0_done_at"],
+                  "max_obs_err": obs_worst, "max_exec_err": exec_worst,
+                  "max_chain_err": max(chain["chain_numpy"], chain["chain_native"]),
+                  "errors": {k: v for k, v in chain.items() if k not in ("compared", "env0_done_at")},
+                  "side_kick_exec_err": side_kick, "apgd_lanes_launches": launches["apgd_lanes"]["deploy"],
+                  "apgd_envfirst_launches": launches["apgd_envfirst"]["deploy"],
+                  "host_tick_median_us": ticks, "teleop_received": received, "teleop_wait_s": waited,
+                  "export_sha256": sha, "seconds": time.perf_counter() - t_deploy, "card": card}
+        print(json.dumps({"deploy": deploy}), flush=True)
 
     if not ok:
         log("chip_smoke: FAILED")

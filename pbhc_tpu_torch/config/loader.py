@@ -86,15 +86,20 @@ def load_snapshot(name: str) -> Cfg:
     return Cfg.wrap(json.loads(path.read_text()))
 
 
-def snapshot_for_checkpoint(ckpt_path) -> Cfg:
-    """Config of the run that wrote `ckpt_path` (`<run>/ckpt/model_<it>.pkl`):
-    the run directory's `config.json` where it has one (the port's training
-    CLI writes it), else the committed snapshot named after the directory."""
-    run_dir = Path(ckpt_path).resolve().parent.parent
+def snapshot_for_run(run_dir) -> Cfg:
+    """Config of the run directory `run_dir`: its `config.json` where it has
+    one (the port's training CLI writes it), else the committed snapshot
+    named after the directory."""
+    run_dir = Path(run_dir).resolve()
     own = run_dir / "config.json"
     if own.is_file():
         return Cfg.wrap(json.loads(own.read_text()))
     return load_snapshot(run_dir.name)
+
+
+def snapshot_for_checkpoint(ckpt_path) -> Cfg:
+    """Config of the run that wrote `ckpt_path` (`<run>/ckpt/model_<it>.pkl`)."""
+    return snapshot_for_run(Path(ckpt_path).resolve().parent.parent)
 
 
 # YAML 1.1 as PyYAML resolves plain scalars: a string may stay unquoted only if

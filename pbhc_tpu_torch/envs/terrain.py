@@ -8,9 +8,10 @@ module's order, so the field and the tile origins are the same bit for bit
 look heights up bilinearly under each contact sphere
 (`Engine.ground_height`).
 
-The MuJoCo writers of the JAX module (`export_mujoco`, `swap_sphere_soles`,
-`fill_mujoco_hfield`) are not here: they serve sim2sim, ROADMAP queue 1
-item 13.
+The MuJoCo writers (`Terrain.export_mujoco`, `swap_sphere_soles`,
+`fill_mujoco_hfield`, `terrain.py:122-249`) write the same scene XML and
+hfield data as the JAX module, for the sim2sim runtimes; they import no
+MuJoCo themselves (`fill_mujoco_hfield` fills a model the caller compiled).
 """
 from __future__ import annotations
 
@@ -140,3 +141,136 @@ class Terrain:
         rows = rng.integers(0, max_row or self.cfg.num_rows, num_envs)
         cols = rng.integers(0, self.cfg.num_cols, num_envs)
         return self.env_origins[rows, cols]
+
+    # ------------------------------------------------------------- mujoco
+    def export_mujoco(self, robot_xml_path, out_xml_path, sphere_feet=True):
+        """Write a MuJoCo scene XML with this terrain as an hfield asset
+        replacing the robot XML's floor plane, plus a sidecar .npz with the
+        elevation data (hfield data can't be inlined in XML; the loader calls
+        `fill_mujoco_hfield`). Geometry matches the engine's lookup
+        (engine.ground_height: world x -> row, world y -> col, corner at 0,0).
+
+        sphere_feet: on hfield scenes the *_ankle_roll collision MESH is
+        swapped for the engine's 4-corner sphere sole (model.g1
+        G1_FOOT_SOLE_SPHERES). mesh<->hfield is MuJoCo's weakest contact
+        pair (per-prism convex tests, few contacts, noisy normals at cell
+        edges) — a policy that completes on the plane scene falls within
+        ~1.5 s on a FLAT hfield tile with mesh feet; sphere<->hfield is the
+        robust pair and matches the geometry the policy trained on.
+
+        reference parity: PhysX heightfield terrain for sim (isaacgym.py:
+        89-150) gets no MuJoCo twin in the reference; this closes that gap so
+        rough-terrain policies can be replayed sim2sim.
+        """
+        import re
+        from pathlib import Path
+
+        hf = self.height_field
+        H, W = hf.shape
+        hs = self.cfg.horizontal_scale
+        zmin, zmax = float(hf.min()), float(hf.max())
+        elev = max(zmax - zmin, 1e-3)
+        # Exact grid registration with the engine: MuJoCo places ncol samples
+        # EVENLY over [-rx, rx] (spacing 2rx/(ncol-1)), while the engine puts
+        # sample i at world x = i*hs. rx = (H-1)*hs/2 with the geom centered
+        # at ((H-1)*hs/2, ...) makes MuJoCo sample k sit exactly at x = k*hs
+        # (using H*hs/2 stretches the map by H/(H-1): ~2 cm height error on
+        # mid-map slopes at H=200).
+        rx, ry = (H - 1) * hs / 2.0, (W - 1) * hs / 2.0
+        # mujoco hfield: data[row, col]; col spans x in [-rx, rx], row spans y
+        asset = (f'<hfield name="terrain" nrow="{W}" ncol="{H}" '
+                 f'size="{rx} {ry} {elev} 1.0"/>')
+        geom = (f'<geom name="terrain" type="hfield" hfield="terrain" '
+                f'pos="{rx} {ry} {zmin}" contype="15" conaffinity="15"/>')
+
+        robot_xml_path = Path(robot_xml_path)
+        xml = robot_xml_path.read_text()
+        xml, n = re.subn(r'<geom[^>]*name="floor"[^>]*/>', geom, xml)
+        if n != 1:
+            raise ValueError(f"{robot_xml_path}: want one floor plane geom to replace, found {n}")
+        # retarget explicit <contact><pair geom2="floor"> entries (rev_2 XML)
+        # at the replacement geom, or the compile fails on the dangling name
+        xml = xml.replace('geom2="floor"', 'geom2="terrain"')
+        if sphere_feet:
+            xml = swap_sphere_soles(xml)
+        xml = xml.replace("<asset>", f"<asset>\n    {asset}", 1)
+        # the scene may be written outside the robot dir: absolutize meshdir
+        xml = re.sub(r'meshdir="([^"]*)"',
+                     lambda m: f'meshdir="{(robot_xml_path.parent / m.group(1)).resolve()}"',
+                     xml)
+        out_xml_path = Path(out_xml_path)
+        out_xml_path.write_text(xml)
+        np.savez(str(out_xml_path) + ".terrain.npz",
+                 data=((hf.T - zmin) / elev).astype(np.float32))
+        return out_xml_path
+
+
+def swap_sphere_soles(xml, style="box"):
+    """Swap colliding *_ankle_roll MESH geoms for an engine-matched sole,
+    keeping the mesh as visual-only.
+
+    style="sphere": the engine's 4-corner sphere sole verbatim
+    (model.g1 G1_FOOT_SOLE_SPHERES). style="box" (default): one box whose
+    BOTTOM FACE spans the same 4 sphere-bottom corners (same sole plane
+    z=-0.035, same support rectangle). Box is the default because MuJoCo
+    3.10's hfield convex test silently MISSES r=5-17.5 mm spheres (measured:
+    sole spheres sink 10 cm through a FLAT hfield tile with ncon=3/8, while
+    box soles reproduce the plane-scene trajectory exactly — the tiny-geom-
+    vs-prism MPR failure mode); sphere<->plane is fine, so plane scenes can
+    keep spheres.
+
+    Attribute-order tolerant; robot variants whose ankle collision is already
+    primitive (29dof_rev_1_0: spheres; rev_2: capsules) have no colliding
+    ankle meshes; primitive contact pairs are robust already, so the swap is
+    a warned no-op there."""
+    import re
+
+    from pbhc_tpu_torch.model.g1 import G1_FOOT_SOLE_SPHERES
+
+    xs = [s[0] for s in G1_FOOT_SOLE_SPHERES]
+    ys = [s[1] for s in G1_FOOT_SOLE_SPHERES]
+    z0 = min(s[2] - s[3] for s in G1_FOOT_SOLE_SPHERES)   # sole plane
+    r0 = max(s[3] for s in G1_FOOT_SOLE_SPHERES)
+    hx = (max(xs) - min(xs)) / 2 + r0
+    hy = (max(ys) - min(ys)) / 2 + r0
+    cx, cy = (max(xs) + min(xs)) / 2, (max(ys) + min(ys)) / 2
+    hz = 0.0025
+    if style == "box":
+        sole = (f'<geom type="box" size="{hx} {hy} {hz}" '
+                f'pos="{cx} {cy} {z0 + hz}" contype="15" conaffinity="15"/>')
+    else:
+        sole = "\n                  ".join(
+            f'<geom type="sphere" size="{r}" pos="{x} {y} {z}" '
+            f'contype="15" conaffinity="15"/>'
+            for x, y, z, r in G1_FOOT_SOLE_SPHERES)
+
+    def _sole(m):
+        tag, mesh = m.group(0), m.group(1)
+        # visual-only geoms (contype 0 / class visual) keep rendering
+        if 'contype="0"' in tag or 'class="visual"' in tag:
+            return tag
+        return (f'<geom type="mesh" contype="0" conaffinity="0" '
+                f'rgba="0.2 0.2 0.2 1" mesh="{mesh}"/>\n'
+                f'                  {sole}')
+
+    pat = r'<geom\b[^>]*\bmesh="((?:left|right)_ankle_roll_link)"[^>]*/>'
+    n_coll = sum(1 for m in re.finditer(pat, xml)
+                 if 'contype="0"' not in m.group(0)
+                 and 'class="visual"' not in m.group(0))
+    if n_coll == 0:
+        import warnings
+        warnings.warn(
+            "swap_sphere_soles: no colliding ankle mesh geoms in this robot "
+            "XML; keeping its primitive foot collision as-is")
+        return xml
+    if n_coll != 2:
+        raise ValueError(f"want 2 ankle_roll collision meshes, found {n_coll}")
+    return re.sub(pat, _sole, xml)
+
+
+def fill_mujoco_hfield(model, xml_path):
+    """Load the sidecar elevation of `export_mujoco` into a compiled
+    `MjModel`'s hfield buffer; returns the model."""
+    data = np.load(str(xml_path) + ".terrain.npz")["data"]
+    model.hfield_data[:] = data.reshape(-1)
+    return model

@@ -18,9 +18,11 @@ the level curriculum). So are soft dynamic correction (on the lanes branch,
 else on the per-env branch, as in JAX), the OU observation-noise process,
 the probabilistic close-to-limit terminations, `parallel_serial_tau` (the
 per-env branch only: JAX's batched branches ignore it, and the port refuses
-it there rather than copy either behaviour), the MPPI snapshots and
-`obs_key_slices`. Teleop raises `NotImplementedError` (ROADMAP queue 1
-item 13: it needs `deploy/teleop.py`).
+it there rather than copy either behaviour), the MPPI snapshots,
+`obs_key_slices` and the teleop hook (`use_teleop_control`: a
+`deploy/teleop.py::TeleopSource` listening on `teleop_port`, default 9870,
+and a marker buffer `teleop_marker_coords` [N,3,3] on the host, as in JAX;
+`close()` stops the listener).
 """
 from __future__ import annotations
 
@@ -130,9 +132,6 @@ class MotionTrackingEnv:
         self.solver = str(sim_cfg.get("solver", "apgd"))
         if self.solver not in ("lanes", "pallas", "apgd", "pgs"):
             raise ValueError(f"unknown solver {self.solver!r}")
-        if bool(ecfg.get("use_teleop_control", False)):
-            raise NotImplementedError("teleop control is not ported yet: it needs deploy/teleop.py "
-                                      "(ROADMAP queue 1 item 13)")
         # the physics branch of `tracking_env.py:791-896`: soft dynamic
         # correction runs on the lanes engine or else per env
         self.use_sdc = bool(ecfg.soft_dynamic_correction.get("enable", False))
@@ -273,6 +272,16 @@ class MotionTrackingEnv:
         self.max_episode_length = int(np.ceil(self.max_episode_length_s / self.dt))
         self.ecfg = ecfg
         self._gravity_vec = f32([0.0, 0.0, -1.0])
+
+        # teleop hook (`tracking_env.py:178-186`; reference motion_tracking.py:112-118,137-138):
+        # the marker buffer fed by a UDP listener in place of a ROS2 subscriber, started
+        # last so that a constructor that raises leaves no listener behind
+        self.teleop_source = None
+        if bool(ecfg.get("use_teleop_control", False)):
+            from pbhc_tpu_torch.deploy.teleop import TeleopSource
+
+            self.teleop_marker_coords = np.zeros((num_envs, 3, 3))
+            self.teleop_source = TeleopSource(port=int(ecfg.get("teleop_port", 9870))).start()
 
     # ------------------------------------------------------------ random draws
     def _uniform(self, shape, lo, hi):
@@ -1075,6 +1084,12 @@ class MotionTrackingEnv:
             slices[name] = (off, off + d)
             off += d
         return slices
+
+    def close(self):
+        """Stop the teleop listener, where `use_teleop_control` started one."""
+        if self.teleop_source is not None:
+            self.teleop_source.stop()
+            self.teleop_source = None
 
     # ------------------------------------------------------------------- logs
     def _build_log(self, term, reset_buf, rew_vec, errors, state):

@@ -65,23 +65,26 @@ def cuda_ms(fn, reps):
 
 
 def device_ms(fn, reps, name):
-    """Mean device time of the CUDA kernels whose name contains `name` in a
-    `torch.profiler` trace of `reps` calls of `fn()` (one such kernel per
-    call) after one warm-up call. The trace may miss a kernel at its start,
-    so the mean is over the kernels it holds."""
+    """Mean device time of the last `reps` CUDA kernels whose name contains
+    `name` in a `torch.profiler` trace of 2 x `reps` calls of `fn()` (one
+    such kernel per call), after one warm-up call outside the trace. A trace
+    misses the kernels launched before its recording starts (30 of 50 short
+    launches in one H100 run), so the first `reps` calls only cover that
+    start."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(2 * reps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
-    if not reps // 2 <= len(kernels) <= reps:
-        raise RuntimeError(f"the trace holds {len(kernels)} {name} kernels for {reps} calls")
-    return sum(e.device_time for e in kernels) / 1e3 / len(kernels)
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name),
+                     key=lambda e: e.time_range.start)
+    if not reps <= len(kernels) <= 2 * reps:
+        raise RuntimeError(f"the trace holds {len(kernels)} {name} kernels for {2 * reps} calls")
+    return sum(e.device_time for e in kernels[-reps:]) / 1e3 / reps
 
 
 def _bound(nbytes, ops):

@@ -2,7 +2,8 @@
 
 Usage:
     python -m pbhc_tpu_torch.eval_agent checkpoint=<run>/ckpt/model_<it>.pkl \\
-        [num_envs=1] [callbacks=plot,force,openloop] [dashboard=true] [device=cpu] [a.b.c=value]
+        [num_envs=1] [callbacks=plot,force,openloop] [dashboard=true] [sim2sim=true] [device=cpu]
+        [a.b.c=value]
 
 Reads the config of the run that wrote the checkpoint (its `config.json`,
 else the committed snapshot: `config/loader.py::snapshot_for_checkpoint`),
@@ -11,13 +12,15 @@ exports the deploy policy beside it (`<run>/exported/model_<it>.npz` and
 policy from clip time 0 with env 0 recorded, computes the E_* accuracy and
 L2_* smoothness families against the reference motion, and writes them with
 the completion ratio to `<run>/eval_model_<it>.json`. It runs on the first
-CUDA card unless `device=` names another device.
+CUDA card unless `device=` names another device. `sim2sim=true` also replays
+the exported `.npz` in MuJoCo for one clip length (`eval/sim2sim.py`; MuJoCo
+must be installed) and adds its families under `sim2sim`.
 
 The reference is fetched as `rollout_jax` fetches it, without the env's
 terrain origin shift (`pbhc_tpu/eval_agent.py:68`), so on a heightfield run
 the global family `E_gmpbpe` includes the tile offset (ROADMAP queue 3).
-`sim2sim=true` (MuJoCo replay, ROADMAP queue 1 item 13) and
-`save_motion=true` (a joblib motion dump, item 14) are not ported and raise.
+`save_motion=true` (a joblib motion dump, ROADMAP queue 1 item 14) is not
+ported and raises.
 """
 from __future__ import annotations
 
@@ -103,9 +106,7 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     kv = dict(a.split("=", 1) for a in argv)
     ckpt_path = Path(kv.pop("checkpoint"))
-    if kv.pop("sim2sim", "false").lower() == "true":
-        raise NotImplementedError("sim2sim=true: the MuJoCo replay is not ported yet "
-                                  "(ROADMAP queue 1 item 13)")
+    sim2sim = kv.pop("sim2sim", "false").lower() == "true"
     save_motion_arg = kv.pop("save_motion", None)
     dashboard_flag = kv.pop("dashboard", "false").lower() == "true"
     callback_names = kv.pop("callbacks", "")
@@ -114,8 +115,8 @@ def main(argv=None):
 
     env, actor, cfg = batch_eval.load(ckpt_path, num_envs, [f"{k}={v}" for k, v in kv.items()], device)
     if not isinstance(actor, (GaussianActor, PhaseAwareActor)):
-        raise NotImplementedError("eval_agent exports MHPPO actors; the student export is ROADMAP "
-                                  "queue 1 item 13")
+        raise NotImplementedError("eval_agent exports and scores MHPPO actors, as the JAX CLI does; export a "
+                                  "PPOMimic student with `python -m pbhc_tpu_torch.deploy.export student <ckpt>`")
     # a run trained with opt=record carries save_motion in its config
     if (save_motion_arg.lower() == "true" if save_motion_arg is not None else bool(cfg.get("save_motion"))):
         raise NotImplementedError("save_motion: the joblib motion writer is not ported yet "
@@ -142,6 +143,17 @@ def main(argv=None):
     print("[eval] accuracy:", json.dumps({k: round(v, 4) for k, v in acc.items()}))
     print("[eval] smoothness:", json.dumps({k: round(v, 4) for k, v in smooth.items()}))
     results = {"accuracy": acc, "smoothness": smooth, "completion_ratio": ratio}
+    if sim2sim:
+        # the MuJoCo replay of the export, scored with the same families
+        # (`eval_agent.py:178-189`; reference urci.py replay + measure_traj.py)
+        from pbhc_tpu_torch.eval.sim2sim import rollout_metrics
+
+        s2s = rollout_metrics(npz_path, cfg.robot.motion.motion_file, robot_type=str(cfg.robot.robot_type),
+                              fix_height=str(cfg.robot.motion.get("fix_height", "no_fix")), device=device)
+        print(f"[eval] sim2sim replay: {s2s['steps']} steps, final root z={s2s['final_z']:.3f}, "
+              f"E_mpjpe={s2s['accuracy']['E_mpjpe']:.1f}")
+        results["sim2sim_final_z"] = s2s["final_z"]
+        results["sim2sim"] = s2s
     out = run_dir / f"eval_{ckpt_path.stem}.json"
     out.write_text(json.dumps(results, indent=1))
     print(f"[eval] wrote {out}")

@@ -10,12 +10,17 @@ The clips are joblib pickles. `load_motion_dict` reads them without joblib:
 reads the raw array bytes that follow it in the file, as
 `joblib.numpy_pickle.NumpyArrayWrapper.read_array` does. There is no disk
 cache (the JAX module caches under `/tmp`).
+
+A committed run config may name its motion by the absolute path of the
+checkout that trained it (`kb2_student23_r3`); `resolve_motion_file` reads
+such a path, where it is missing, as the same file under this checkout.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import pickle
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -24,6 +29,8 @@ from scipy.ndimage import gaussian_filter1d
 from pbhc_tpu_torch.maths import rotations as rot
 from pbhc_tpu_torch.model.kinematics import dof_from_pose_aa, fk_pose_aa
 from pbhc_tpu_torch.model.mjcf import RobotModel
+
+REPO_ROOT = Path(__file__).resolve().parents[2]
 
 
 class _ArrayPlaceholder:
@@ -80,8 +87,25 @@ def load_joblib(path):
         return _JoblibReader(f).load()
 
 
+def resolve_motion_file(motion_file) -> str:
+    """`motion_file` where it exists; else its part from the last `assets`
+    on, under this checkout's root (a path recorded in another checkout).
+    Raises `FileNotFoundError` where neither exists."""
+    path = Path(motion_file)
+    if path.exists():
+        return str(motion_file)
+    parts = path.parts
+    if "assets" in parts:
+        local = REPO_ROOT.joinpath(*parts[len(parts) - 1 - parts[::-1].index("assets"):])
+        if local.exists():
+            return str(local)
+    raise FileNotFoundError(f"motion file {motion_file} not found, nor under {REPO_ROOT}")
+
+
 def load_motion_dict(motion_file) -> dict:
-    """One pkl, or a directory of pkls merged in sorted order (`motion_lib.py:75`)."""
+    """One pkl, or a directory of pkls merged in sorted order (`motion_lib.py:75`),
+    at `resolve_motion_file(motion_file)`."""
+    motion_file = resolve_motion_file(motion_file)
     if not os.path.isdir(motion_file):
         return load_joblib(motion_file)
     names = sorted(f for f in os.listdir(motion_file) if f.endswith(".pkl"))

@@ -9,14 +9,15 @@ quaternion, linear and angular velocity, world frame), per-body
 setters. The envs here step the engine directly; this facade gives the same
 contract over it, for code written against the contract and for lock-step
 comparisons. `EngineSimulator` is the JAX package's `TpuSimulator`: a
-stateful wrapper around the per-env `Engine.substep`. The MuJoCo backend
-(`MujocoSimulator`) is not here: the card's machine has no MuJoCo (ROADMAP
-queue 1 item 13).
+stateful wrapper around the per-env `Engine.substep`. `MujocoSimulator` is
+the MuJoCo backend (`simulator.py:125-197`), on the host; it imports
+`mujoco` when it is built, so this module imports where MuJoCo is missing.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from pbhc_tpu_torch.sim.engine import Engine, SimParams, tree_map
@@ -109,3 +110,80 @@ class EngineSimulator(BaseSimulator):
         self.state = dataclasses.replace(
             st, dof_pos=torch.where(m, torch.as_tensor(dof_pos, dtype=torch.float32, device=dev), st.dof_pos),
             dof_vel=torch.where(m, torch.as_tensor(dof_vel, dtype=torch.float32, device=dev), st.dof_vel))
+
+
+class MujocoSimulator(BaseSimulator):
+    """Single-env MuJoCo backend with the same contract, the CPU oracle
+    (`simulator.py:125`): its tensors are host numpy arrays with a leading
+    env axis of 1. `mujoco` is imported in the constructor."""
+
+    def __init__(self, xml_path, sim_fps=200):
+        import mujoco
+
+        self._mujoco = mujoco
+        self.m = mujoco.MjModel.from_xml_path(str(xml_path))
+        self.m.opt.timestep = 1.0 / sim_fps
+        self.d = mujoco.MjData(self.m)
+        self.num_envs = 1
+        self.nd = self.m.nv - 6
+        self._torques = np.zeros(self.nd)
+        self.refresh_sim_tensors()
+
+    @property
+    def _body_list(self):
+        return [self._mujoco.mj_id2name(self.m, self._mujoco.mjtObj.mjOBJ_BODY, i)
+                for i in range(1, self.m.nbody)]
+
+    def apply_torques_at_dof(self, torques):
+        self._torques = np.asarray(torques).reshape(-1)
+
+    def simulate_at_each_physics_step(self):
+        self.d.qfrc_applied[:] = 0
+        self.d.qfrc_applied[6:] = self._torques
+        self._mujoco.mj_step(self.m, self.d)
+
+    def refresh_sim_tensors(self):
+        from scipy.spatial.transform import Rotation as sRot
+
+        d = self.d
+        self.dof_pos = d.qpos[7:].copy()[None]
+        self.dof_vel = d.qvel[6:].copy()[None]
+        quat = d.qpos[3:7][[1, 2, 3, 0]]
+        ang_world = sRot.from_quat(quat).apply(d.qvel[3:6])  # body->world
+        self.robot_root_states = np.concatenate(
+            [d.qpos[:3], quat, d.qvel[:3], ang_world])[None]
+        self.base_quat = quat[None]
+        self._rigid_body_pos = d.xpos[1:].copy()[None]
+        self._rigid_body_rot = d.xquat[1:][:, [1, 2, 3, 0]].copy()[None]
+        vels = np.zeros((self.m.nbody - 1, 6))
+        for i in range(1, self.m.nbody):
+            self._mujoco.mj_objectVelocity(self.m, d, self._mujoco.mjtObj.mjOBJ_BODY, i, vels[i - 1], 0)
+        self._rigid_body_ang_vel = vels[None, :, :3]
+        self._rigid_body_vel = vels[None, :, 3:]
+        cf = np.zeros((self.m.nbody - 1, 3))
+        for ci in range(d.ncon):
+            c = d.contact[ci]
+            force = np.zeros(6)
+            self._mujoco.mj_contactForce(self.m, d, ci, force)
+            frame = c.frame.reshape(3, 3)
+            f_world = frame.T @ force[:3]
+            for g in (c.geom1, c.geom2):
+                b = self.m.geom_bodyid[g]
+                if b > 0:
+                    cf[b - 1] += f_world
+        self.contact_forces = cf[None]
+
+    def set_actor_root_state_tensor(self, env_ids, root_states):
+        rs = np.asarray(root_states).reshape(-1)
+        self.d.qpos[:3] = rs[0:3]
+        self.d.qpos[3:7] = rs[3:7][[3, 0, 1, 2]]
+        self.d.qvel[:3] = rs[7:10]
+        from scipy.spatial.transform import Rotation as sRot
+
+        self.d.qvel[3:6] = sRot.from_quat(rs[3:7]).apply(rs[10:13], inverse=True)
+        self._mujoco.mj_forward(self.m, self.d)
+
+    def set_dof_state_tensor(self, env_ids, dof_pos, dof_vel):
+        self.d.qpos[7:] = np.asarray(dof_pos).reshape(-1)
+        self.d.qvel[6:] = np.asarray(dof_vel).reshape(-1)
+        self._mujoco.mj_forward(self.m, self.d)

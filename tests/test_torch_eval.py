@@ -220,8 +220,6 @@ def test_eval_agent_end_to_end_matches_jax(tmp_path):
     for suffix in (".npz", ".onnx"):
         a = (jckpt.parent.parent / "exported" / f"model_10500{suffix}").read_bytes()
         assert (tckpt.parent.parent / "exported" / f"model_10500{suffix}").read_bytes() == a, suffix
-    with pytest.raises(NotImplementedError, match="item 13"):
-        eval_agent.main([f"checkpoint={tckpt}", "sim2sim=true", "device=cpu"])
     with pytest.raises(NotImplementedError, match="item 14"):
         eval_agent.main([f"checkpoint={tckpt}", tmotion, "save_motion=true", "device=cpu"])
 
@@ -367,6 +365,6 @@ def test_eval_agent_refuses_student_export(tmp_path):
     ckpt = tmp_path / "kb2_teacher23_r3" / "ckpt" / Path(KB2_CKPT).name
     ckpt.parent.mkdir(parents=True)
     shutil.copy(REPO / KB2_CKPT, ckpt)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="export student"):
         eval_agent.main([f"checkpoint={ckpt}", "device=cpu", "num_envs=1"])
     assert sorted(p.name for p in ckpt.parents[1].iterdir()) == ["ckpt"]     # nothing written

@@ -13,9 +13,17 @@ config read from the snapshot) at 32 envs, a KungfuBot2 teacher with MoE
 backbones and a phase-aware MHPPO run at 16 envs, steps the v1 env at 16
 envs on the per-env engine (`pgs`; `apgd` with soft dynamic correction; the
 OU observation noise and the close-to-limit terminations), steps the
-simulator facade, and runs the evaluation CLI (`python -m
+simulator facade, runs the evaluation CLI (`python -m
 pbhc_tpu_torch.eval_agent`) on a copy of the side-kick run with its clip cut
-to 20 frames.
+to 20 frames, exports the committed KungfuBot2 student through the `export
+student` CLI, builds one tick of its deploy inputs (`StudentObsBuilder`) and
+runs them on the native executor (`StudentPolicy(native=True)`), starts the
+teleop hook of the env and checks that a MuJoCo-side constructor raises
+`ImportError` there.
+
+`mujoco` may be imported only inside functions of the seven port modules of
+the MuJoCo side (`MUJOCO_MODULES`), so that every module imports on the
+card's machine; a top-level `import mujoco` anywhere fails the source check.
 """
 import ast
 import subprocess
@@ -26,6 +34,12 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pbhc_tpu", "yaml", "joblib", "lxml", "mujoco",
            "tensorboard")
+# the MuJoCo side of the deploy and eval stack: the only modules that may
+# import `mujoco`, and only inside a function
+MUJOCO_MODULES = {"pbhc_tpu_torch/deploy/mujoco_runtime.py", "pbhc_tpu_torch/deploy/urci.py",
+                  "pbhc_tpu_torch/deploy/real_robot.py", "pbhc_tpu_torch/eval/sim2sim.py",
+                  "pbhc_tpu_torch/envs/terrain.py", "pbhc_tpu_torch/sim/simulator.py",
+                  "pbhc_tpu_torch/deploy/mj_mirror.py"}
 
 SCRIPT = textwrap.dedent("""
     import sys
@@ -124,6 +138,36 @@ SCRIPT = textwrap.dedent("""
                 f"robot.motion.motion_file={{run.parent}}/short.pkl"]
     runpy.run_module("pbhc_tpu_torch.eval_agent", run_name="__main__")
     assert (run / "exported" / "model_10500.onnx").is_file() and (run / "eval_model_10500.json").is_file()
+    import numpy as np
+    from pbhc_tpu_torch.deploy import export
+    from pbhc_tpu_torch.deploy.student_obs import MotionHost, StudentObsBuilder
+    from pbhc_tpu_torch.maths import rotations as rot
+    student = "artifacts/kb2_student23_r3/ckpt/model_8000.pkl"
+    onnx = export.main(["student", student, "{base_dir}/student/student.onnx", "device=cpu"])
+    assert onnx.is_file() and (onnx.parent / "student.onnx.meta.json").is_file()
+    env, net, cfg = batch_eval.load(student, 1, device="cpu")
+    state, obs = batch_eval.start_episodes(env)
+    sim = state.sim
+    class Robot:
+        q, dq, quat_xyzw = sim.dof_pos[0].numpy(), sim.dof_vel[0].numpy(), sim.root_quat[0].numpy()
+        base_ang_vel_local = rot.quat_rotate_inverse(sim.root_quat, sim.root_ang_vel)[0].numpy()
+        last_action = state.actions[0].numpy()
+    feeds = StudentObsBuilder(export.student_meta(env), MotionHost(env.motion_lib),
+                              compensate_offsets=False).build(Robot, 0.0)
+    assert {{k: v.shape for k, v in feeds.items()}} == {{k: tuple(obs[k].shape) for k in feeds}}
+    action = export.StudentPolicy(onnx, native=True)(feeds)
+    assert action.shape == (23,) and np.isfinite(action).all()
+    env, actor, cfg = batch_eval.load("artifacts/kb1_side_kick/ckpt/model_10500.pkl", 2,
+                                      ["env.config.use_teleop_control=true", "env.config.teleop_port=0"],
+                                      device="cpu")
+    assert env.teleop_marker_coords.shape == (2, 3, 3) and env.teleop_source.addr[1] > 0
+    env.close()
+    from pbhc_tpu_torch.sim.simulator import MujocoSimulator
+    try:
+        MujocoSimulator("assets/robots/g1/g1_23dof_lock_wrist.xml")
+        raise AssertionError("MujocoSimulator built without mujoco")
+    except ImportError:
+        pass
     leaked = [n for n, m in sys.modules.items() if n.split(".")[0] in BLOCKED and m is not None]
     assert not leaked, leaked
     print("modules", len(names), "ISOLATION OK")
@@ -139,19 +183,37 @@ def test_port_runs_without_jax_yaml_joblib_lxml(tmp_path):
     assert out.stdout.count("[it 1/1]") == 4 and len(list(tmp_path.glob("PBHC_TPU/*/ckpt/model_1.pkl"))) == 4
 
 
-def _imported_roots(path):
-    roots = set()
-    for node in ast.walk(ast.parse(path.read_text())):
+def _imports(path):
+    """(root module, inside a function) for every absolute import of `path`."""
+    out = []
+
+    def visit(node, in_function):
         if isinstance(node, ast.Import):
-            roots |= {a.name.split(".")[0] for a in node.names}
+            out.extend((a.name.split(".")[0], in_function) for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            roots.add(node.module.split(".")[0])
-    return roots
+            out.append((node.module.split(".")[0], in_function))
+        in_function = in_function or isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+        for child in ast.iter_child_nodes(node):
+            visit(child, in_function)
+
+    visit(ast.parse(path.read_text()), False)
+    return out
 
 
 def test_no_forbidden_import_in_sources():
     files = sorted((REPO / "pbhc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    mujoco_in = set()
     for f in files:
-        bad = _imported_roots(f) & set(BLOCKED)
-        assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
+        rel = f.relative_to(REPO).as_posix()
+        imports = _imports(f)
+        bad = {root for root, _ in imports if root in BLOCKED and root != "mujoco"}
+        assert not bad, f"{rel} imports {sorted(bad)}"
+        for root, in_function in imports:
+            if root == "mujoco":
+                assert rel in MUJOCO_MODULES, f"{rel} imports mujoco: only {sorted(MUJOCO_MODULES)} may"
+                assert in_function, f"{rel} imports mujoco at module level: import it inside the function"
+                mujoco_in.add(rel)
+    # the scoping is not vacuous: the runtimes that build MuJoCo models import it
+    assert {"pbhc_tpu_torch/deploy/mujoco_runtime.py", "pbhc_tpu_torch/deploy/mj_mirror.py",
+            "pbhc_tpu_torch/sim/simulator.py"} <= mujoco_in

@@ -75,3 +75,17 @@ def test_fix_height_shifts_like_jax(monkeypatch):
     jlib = jml.MotionLib(path, jax_motion_model(), 4, 0.02, fix_height="full_fix")
     tlib = tml.MotionLib(path, load_g1_motion_model(), 4, 0.02, fix_height="full_fix", device="cpu")
     np.testing.assert_allclose(tlib.data.gts.numpy(), np.asarray(jlib.data.gts), atol=2e-5)
+
+
+@pytest.mark.parametrize("given", ["/elsewhere/checkout/assets/motions/g1_ue_walk_23dof.pkl",
+                                   "assets/motions/g1_ue_walk_23dof.pkl"])
+def test_motion_path_of_another_checkout_resolves_here(given, tmp_path, monkeypatch):
+    """A run config recorded in another checkout (kb2_student23_r3 names its
+    motion by such an absolute path) loads this checkout's file, whatever the
+    working directory; a file that is nowhere raises."""
+    monkeypatch.chdir(tmp_path)
+    want = REPO / "assets" / "motions" / "g1_ue_walk_23dof.pkl"
+    assert tml.resolve_motion_file(given) == str(want)
+    _equal(joblib.load(want), tml.load_motion_dict(given))
+    with pytest.raises(FileNotFoundError, match="no_such_clip"):
+        tml.resolve_motion_file(given.replace("g1_ue_walk_23dof", "no_such_clip"))
