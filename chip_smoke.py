@@ -34,11 +34,16 @@ holds every CUDA kernel they launch against its plain PyTorch version:
   CLI, on the committed KungfuBot2 student, then that student served at its
   own 2048 envs (kernel 1) with env 0's deploy inputs rebuilt on the host by
   `StudentObsBuilder` and run by both host executors of the export, the
-  side-kick's exports on the host executors, and the teleop hook of the env.
+  side-kick's exports on the host executors, and the teleop hook of the env;
+- the benchmark suite: `pbhc_tpu_torch.eval.benchmarks.main`, configs 2-5
+  (walk tracking at 64 envs, horse-stance punch at 4096, KungfuBot2 29-DoF
+  over a merged library of three 23-DoF clips at 2048, 29-DoF walk at 1024;
+  kernel 1).
 Phases, each announced when it starts and when it ends:
 
   build            - compile both kernels from `pbhc_tpu_torch/csrc/` (nvcc, sm_90a, in parallel)
-  kernel           - each kernel vs its plain version at R = 12 and 38 rows, with timings
+  kernel           - each kernel vs its plain version at R = 12 and 38 rows (kernel 1 also at N = 2048,
+                     1024 and 64), with timings
   substep          - one lanes control step at 4096 envs, kernel 1 vs plain solve
   substep-allrows  - the same with `contact_cap: 0` (every row, R = 38)
   substep-envfirst - one env-first control step at 4096 envs, kernel 2 vs plain solve
@@ -76,6 +81,10 @@ Phases, each announced when it starts and when it ends:
                      the student's deploy chain over 100 control steps at 2048 envs (launches counted
                      from 0); the side-kick's host executors against its actor on the card; the teleop
                      hook at 4096 envs; the host cores' tick; one JSON line {"deploy": ...}
+  suite            - the benchmark suite's configs 2-5 (`pbhc_tpu_torch.eval.benchmarks`) at 64, 4096,
+                     2048 and 1024 envs, 30 warm-up and 30 timed steps each (launches counted from 0
+                     per config: 4 per step); config 4's library merged by `motion/package.merge`; one
+                     JSON line per config and one {"suite": ...} line
   report           - the `kernels` JSON line, the card line, the final result line
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
@@ -448,8 +457,10 @@ def main():
 
     with phase("kernel"):
         for name, (kernel, _, plain, problem, bound, _) in kernel_bench.KERNELS.items():
-            # kernel 1 also at the KungfuBot2 paths' shape (R = 12, N = 2048)
-            shapes = [(ROWS, NUM_ENVS), (ALL_ROWS, NUM_ENVS)] + ([(ROWS, KB2_ENVS)] if name == "apgd_lanes" else [])
+            # kernel 1 also at the KungfuBot2 paths' shape (R = 12, N = 2048),
+            # and at the benchmark suite's smallest and 29-DoF widths (N = 64, 1024)
+            shapes = [(ROWS, NUM_ENVS), (ALL_ROWS, NUM_ENVS)] + (
+                [(ROWS, KB2_ENVS), (ROWS, 64), (ROWS, 1024)] if name == "apgd_lanes" else [])
             for R, N in shapes:
                 args = problem(R, N, dev, R)
                 out = kernel(*args, ITERS)
@@ -465,7 +476,7 @@ def main():
                           plain_ms=kernel_bench.cuda_ms(lambda: plain(*args, ITERS), 10),
                           bound_ms=bound_ms, bound_by=bound_by, tile=contact_kernel.tile(name, R))
                 # the first paths' shape (R = 12, N = 4096) is the kernel's entry; every row
-                # (R = 38) and the KungfuBot2 paths' N = 2048 ride along
+                # (R = 38) and the other widths (N = 2048, 1024, 64) ride along
                 stats[name].update(st if (R, N) == (ROWS, NUM_ENVS) else {f"r{R}" if R != ROWS else f"n{N}": st})
                 log(f"{name} R={R} N={N} iters={ITERS}: max_abs_err {err:.3e} (tol {KERNEL_ATOL:g}), "
                     f"|ref| max {float(ref.abs().max()):.3f}, kernel {st['ms']:.5f} ms per launch back to back, "
@@ -1057,6 +1068,31 @@ def main():
                   "host_tick_median_us": ticks, "teleop_received": received, "teleop_wait_s": waited,
                   "export_sha256": sha, "seconds": time.perf_counter() - t_deploy, "card": card}
         print(json.dumps({"deploy": deploy}), flush=True)
+
+    with phase("suite"):
+        # the benchmark suite's configs 2-5 through its entry point, each at its
+        # own width; each prints its JSON line. Config 1 (MuJoCo) is host-only.
+        from pbhc_tpu_torch.eval import benchmarks
+
+        suite = {}
+        for key in ("2", "3", "4", "5"):
+            path = f"suite-{key}"
+            (res,) = count(path, lambda: benchmarks.main([key], device=dev))
+            d = res["detail"]
+            expect_launches(path, {"apgd_lanes": 4 * (d["warmup_steps"] + d["steps"]), "apgd_envfirst": 0})
+            if not (res["value"] > 0 and np.isfinite(res["value"]) and np.isfinite(d["reward_sums"]).all()):
+                log(f"FAIL: {path}: value {res['value']}, reward sums {d['reward_sums']}")
+                ok = False
+            if key == "4" and not d["library_clips"] == d["num_unique"] == 3:
+                log(f"FAIL: {path}: merged library read back with {d['library_clips']} clips, "
+                    f"env num_unique {d['num_unique']} (want 3)")
+                ok = False
+            log(f"{path}: {res['config']} {d['steps'] * d['num_envs'] / d['seconds']:.3f} env-steps/s at "
+                f"{d['num_envs']} envs on {card}: " + json.dumps(d))
+            suite[res["config"]] = dict(env_steps_per_sec=d["steps"] * d["num_envs"] / d["seconds"], **d)
+            del res
+            torch.cuda.empty_cache()
+        print(json.dumps({"suite": suite, "card": card}), flush=True)
 
     if not ok:
         log("chip_smoke: FAILED")

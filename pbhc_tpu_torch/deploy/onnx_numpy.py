@@ -279,9 +279,10 @@ def meta_from_reference_config(config, motion_file=None):
     list of one-key dicts, which is all the JAX function reads. The runs this
     repo commits have neither: their DoF order is the robot MJCF's joint
     order (`model/g1.py`), and `obs_dims` is one dict; both are read here."""
-    from pbhc_tpu_torch.config.loader import snapshot_for_run
+    from pbhc_tpu_torch.config.loader import resolve_interpolations, snapshot_for_run
 
-    cfg = config if isinstance(config, dict) else snapshot_for_run(config)
+    # resolved leniently, as JAX's is: foreign resolvers (`${now:...}`) stay raw
+    cfg = resolve_interpolations(config if isinstance(config, dict) else snapshot_for_run(config), strict=False)
     r = cfg["robot"]
     if "dof_names" in r:
         dof_names = list(r["dof_names"])

@@ -14,7 +14,7 @@ an interface: `UnitreeDDSTransport` binds to `unitree_sdk2py` where it is
 installed; `LoopbackTransport` runs the same controller against the MuJoCo
 runtime. Unlike the JAX controller, a policy whose native executor fails to
 build or plan raises instead of falling back to numpy. `main` reads its
-robot config as JSON (`config/snapshots/deploy/real_g1_23*.json`); JSON is
+robot config as JSON (`config/groups/deploy/real_g1_23*.json`); JSON is
 YAML, so one file serves both packages.
 """
 from __future__ import annotations
@@ -367,7 +367,7 @@ def main(argv=None):
     Zero torque until START, blend to the default pose, hold until A, then
     run the policy at control_dt; SELECT (or Ctrl-C) drops to damping mode.
     The config's schema is the reference deploy_real/configs/g1_23*.yaml's,
-    written as JSON: see pbhc_tpu_torch/config/snapshots/deploy/real_g1_23{,_student}.json.
+    written as JSON: see pbhc_tpu_torch/config/groups/deploy/real_g1_23{,_student}.json.
     """
     import json
     import sys as _sys

@@ -19,7 +19,7 @@ native executor raises: nothing falls back to the numpy executor.
 CLI:
     python -m pbhc_tpu_torch.deploy.urci policy_a.npz [policy_b.npz ...] \\
         [steps=1000] [deploy=single|multiple|external] [attack.imu=OU] [attack.action_delay_ms=10] ...
-`deploy=<group>` reads `config/snapshots/deploy/<group>.json` (the JSON of
+`deploy=<group>` reads `config/groups/deploy/<group>.json` (the JSON of
 the JAX package's `config/deploy/<group>.yaml`). MuJoCo is needed to run it.
 """
 from __future__ import annotations
@@ -193,7 +193,7 @@ def main(argv=None):
     if "deploy" in kv:
         import json
 
-        grp = Path(__file__).resolve().parents[1] / "config" / "snapshots" / "deploy" / f"{kv.pop('deploy')}.json"
+        grp = Path(__file__).resolve().parents[1] / "config" / "groups" / "deploy" / f"{kv.pop('deploy')}.json"
         dep = json.loads(grp.read_text())["deploy"]
     steps = int(kv.pop("steps", dep.get("steps", 500)))
     loop = str(kv.pop("loop", dep.get("loop", "true"))).lower() in ("true", "1")

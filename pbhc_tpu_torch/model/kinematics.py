@@ -47,10 +47,19 @@ def _fk_levels(model: RobotModel, R_root, p_root, R_joint):
     return p_acc[..., pos, :], R_acc[..., pos, :, :]
 
 
+def _clamped(index, rows: int):
+    """`index` clipped to `rows - 1`. JAX clamps an out-of-range gather index,
+    so where a clip has fewer pose rows than the model has bodies (a 23-DoF
+    clip, 27 rows, on the 29-DoF model, 30 bodies) the JAX package reads its
+    last row for the bodies beyond; the port reads the same."""
+    return np.minimum(np.asarray(index), rows - 1)
+
+
 def fk_pose_aa(model: RobotModel, pose_aa, trans):
     """Motion-data FK (`kinematics.py:59`): pose_aa [...,J,3] per-body
     axis-angle (index 0 = root), trans [...,3] -> (pos [...,B,3], quat [...,B,4])."""
-    R_pose = rot.quat_to_matrix(rot.exp_map_to_quat(pose_aa[..., : model.num_bodies, :]))
+    rows = _clamped(np.arange(model.num_bodies), pose_aa.shape[-2])
+    R_pose = rot.quat_to_matrix(rot.exp_map_to_quat(pose_aa[..., rows, :]))
     p_w, R_w = _fk_levels(model, R_pose[..., 0, :, :], trans, R_pose)
     return p_w, rot.matrix_to_quat(R_w)
 
@@ -98,4 +107,4 @@ def fk_velocities(model: RobotModel, body_pos, body_R, root_lin_vel, root_ang_ve
 def dof_from_pose_aa(model: RobotModel, pose_aa):
     """Hinge angles from per-body axis-angle (`kinematics.py:128`): [...,J,3] -> [...,nd]."""
     sgn = torch.as_tensor(np.asarray(model.dof_axis).sum(-1), dtype=torch.float32, device=pose_aa.device)
-    return pose_aa[..., np.asarray(model.dof_body), :].sum(-1) * sgn
+    return pose_aa[..., _clamped(model.dof_body, pose_aa.shape[-2]), :].sum(-1) * sgn

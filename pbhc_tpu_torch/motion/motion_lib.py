@@ -8,8 +8,9 @@ time-indexed interpolated reference states (`get_motion_state`).
 The clips are joblib pickles. `load_motion_dict` reads them without joblib:
 `_JoblibReader` maps joblib's `NumpyArrayWrapper` to a local placeholder and
 reads the raw array bytes that follow it in the file, as
-`joblib.numpy_pickle.NumpyArrayWrapper.read_array` does. There is no disk
-cache (the JAX module caches under `/tmp`).
+`joblib.numpy_pickle.NumpyArrayWrapper.read_array` does; a compressed file
+is decompressed with the standard library first. There is no disk cache
+(the JAX module caches under `/tmp`).
 
 A committed run config may name its motion by the absolute path of the
 checkout that trained it (`kb2_student23_r3`); `resolve_motion_file` reads
@@ -17,9 +18,14 @@ such a path, where it is missing, as the same file under this checkout.
 """
 from __future__ import annotations
 
+import bz2
 import dataclasses
+import gzip
+import io
+import lzma
 import os
 import pickle
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -82,9 +88,28 @@ class _JoblibReader(pickle._Unpickler):
     dispatch[pickle.BUILD[0]] = load_build
 
 
+# joblib's compressors by the first bytes of the file (`joblib/compressor.py`;
+# `numpy_pickle_utils._detect_compressor`): each writes the whole pickle
+# stream through it, with the arrays unpadded
+_COMPRESSORS = ((b"\x78", zlib.decompress), (b"\x1f\x8b", gzip.decompress), (b"BZh", bz2.decompress),
+                (b"\xfd7zXZ", lzma.decompress), (b"]\x00\x00", lzma.decompress))
+_PICKLE_PROTO = b"\x80"
+
+
 def load_joblib(path):
+    """The object of a `joblib.dump` file, uncompressed or compressed with
+    zlib, gzip, bz2, xz or lzma (as `joblib.load` reads it). Raises
+    `ValueError` on another header (lz4, or not joblib's)."""
     with open(path, "rb") as f:
-        return _JoblibReader(f).load()
+        head = f.read(5)
+        f.seek(0)
+        if head.startswith(_PICKLE_PROTO):
+            return _JoblibReader(f).load()
+        for magic, decompress in _COMPRESSORS:
+            if head.startswith(magic):
+                return _JoblibReader(io.BytesIO(decompress(f.read()))).load()
+    raise ValueError(f"{path}: header {head!r} is neither a pickle nor a joblib compressor this "
+                     "reader knows (zlib, gzip, bz2, xz, lzma)")
 
 
 def resolve_motion_file(motion_file) -> str:

@@ -1,6 +1,7 @@
 """Training CLI (counterpart of `pbhc_tpu/train.py`).
 
-Usage (selection sets with a config snapshot, `config/loader.py::COMPOSED`):
+Usage (any selection of the config groups; these are the sets with a committed
+snapshot of their composition, `config/loader.py::COMPOSED`):
     # KungfuBot v1 (MHPPO on MotionTrackingEnv); add terrain=locomotion for the
     # heightfield curriculum terrain
     python -m pbhc_tpu_torch.train exp=motion_tracking robot=g1_23dof \\

@@ -23,7 +23,7 @@ from pbhc_tpu_torch.model.mjcf import load_mjcf, strip_xml_comments  # noqa: E40
 REPO = Path(__file__).resolve().parents[1]
 G1 = REPO / "assets" / "robots" / "g1"
 # run snapshots; the composed ones (`tl.COMPOSED`) are held against the JAX
-# `compose` in tests/test_torch_train.py
+# `compose` in tests/test_torch_config_compose.py
 SNAPSHOTS = sorted(p for p in tl.SNAPSHOT_DIR.glob("*.json") if p.stem not in tl.COMPOSED.values())
 
 
@@ -59,11 +59,10 @@ def test_snapshot_for_checkpoint_and_missing_run():
                                   "[0, 2]", "lanes", "assets/motions/Side_kick.pkl"])
 def test_parse_scalar_matches_yaml(text):
     """CLI override values parse as the JAX loader's yaml.safe_load does
-    (YAML 1.1 reads '1e-5' as a string, JSON as a float: the port's choice)."""
+    (YAML 1.1 reads '1e-5' as a string: a float needs a `.`)."""
     want = yaml.safe_load(text)
-    if text == "1e-5":
-        want = 1e-5
-    assert tl.parse_scalar(text) == want
+    got = tl.parse_scalar(text)
+    assert got == want and type(got) is type(want)
 
 
 def test_overrides_reach_nested_keys():

@@ -328,3 +328,19 @@ def test_moe_and_phase_aware_networks_on_card_match_cpu(cuda_device):
         got = got if isinstance(got, tuple) else (got,)
         for w, o in zip(want, got):
             np.testing.assert_allclose(o.cpu().numpy(), w.numpy(), atol=1e-5 * max(1.0, float(w.abs().max())))
+
+
+@pytest.mark.cuda
+def test_suite_config_2_launches_kernel_1(cuda_device):
+    """The benchmark suite's config 2 (walk tracking, 64 envs, lanes) on the
+    card: 4 launches of kernel 1 per control step over the warm-up and the
+    timed steps, none of kernel 2, finite reward sums."""
+    from pbhc_tpu_torch.eval import benchmarks
+
+    ck.apgd_lanes.launches = ck.apgd_envfirst.launches = 0
+    res = benchmarks.bench_walk64("cuda")
+    torch.cuda.synchronize()
+    d = res["detail"]
+    assert d["num_envs"] == 64 and res["value"] > 0 and all(np.isfinite(d["reward_sums"]))
+    assert ck.apgd_lanes.launches == 4 * (d["warmup_steps"] + d["steps"])
+    assert ck.apgd_envfirst.launches == 0

@@ -172,6 +172,26 @@ def test_meta_from_reference_config(tmp_path):
         np.testing.assert_allclose(got[k], written[k], rtol=1e-6, err_msg=k)
 
 
+def test_meta_from_reference_config_resolves_interpolations(tmp_path):
+    """A config dict whose values still hold `${...}` (and a foreign resolver,
+    kept raw) gives the metadata JAX's gives after its lenient resolution."""
+    written = json.loads(bytes(np.load(TERRAIN_RUN / "exported" / "model_6000.npz")["meta_json"]).decode())
+    cfg = _reference_format(yaml.safe_load((TERRAIN_RUN / "config.yaml").read_text()), written["dof_names"])
+    dims = cfg["obs"]["obs_dims"]
+    plain = meta_from_reference_config(cfg, "m.pkl")
+    for entry in dims:
+        ((k, v),) = entry.items()
+        if v == cfg["robot"]["dof_obs_size"]:
+            entry[k] = "${robot.dof_obs_size}"
+        elif v == 3 * cfg["robot"]["dof_obs_size"]:
+            entry[k] = "${eval:'3 * ${robot.dof_obs_size}'}"
+    cfg["experiment_dir"] = "logs/${now:%Y-%m-%d}"
+    assert any(isinstance(v, str) for e in dims for v in e.values())
+    (tmp_path / "config.yaml").write_text(yaml.safe_dump(cfg))
+    want = jax_meta_from_config(tmp_path / "config.yaml", "m.pkl")
+    assert meta_from_reference_config(cfg, "m.pkl") == want == plain
+
+
 def test_terrain_onnx_executors_match_jax():
     meta = meta_from_reference_config(TERRAIN_RUN)
     obs = np.random.default_rng(2).standard_normal((4, 380)).astype(np.float32)
@@ -348,6 +368,6 @@ def test_teleop_env_hook():
 
 @pytest.mark.parametrize("group", ["single", "multiple", "external", "real_g1_23", "real_g1_23_student"])
 def test_deploy_snapshot_equals_yaml(group):
-    snap = REPO / "pbhc_tpu_torch" / "config" / "snapshots" / "deploy" / f"{group}.json"
+    snap = REPO / "pbhc_tpu_torch" / "config" / "groups" / "deploy" / f"{group}.json"
     assert json.loads(snap.read_text()) == yaml.safe_load((REPO / "pbhc_tpu" / "config" / "deploy"
                                                            / f"{group}.yaml").read_text())

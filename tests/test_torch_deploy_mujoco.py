@@ -223,7 +223,7 @@ def test_remote_decode_deploy_map_and_config(tmp_path):
     assert dataclasses.asdict(m) == dataclasses.asdict(jax_real.G1DeployMap())
     assert set(m.policy2motor) | set(m.held_motor_idx) == set(range(m.num_motors))
     # `main` reads the JSON config; without the Unitree SDK the transport refuses
-    cfg = REPO / "pbhc_tpu_torch" / "config" / "snapshots" / "deploy" / "real_g1_23.json"
+    cfg = REPO / "pbhc_tpu_torch" / "config" / "groups" / "deploy" / "real_g1_23.json"
     with pytest.raises(ImportError, match="unitree_sdk2py"):
         real_robot.main(["lo", str(cfg)])
     assert real_robot.main(["lo"]) == 1

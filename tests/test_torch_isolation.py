@@ -18,8 +18,10 @@ pbhc_tpu_torch.eval_agent`) on a copy of the side-kick run with its clip cut
 to 20 frames, exports the committed KungfuBot2 student through the `export
 student` CLI, builds one tick of its deploy inputs (`StudentObsBuilder`) and
 runs them on the native executor (`StudentPolicy(native=True)`), starts the
-teleop hook of the env and checks that a MuJoCo-side constructor raises
-`ImportError` there.
+teleop hook of the env, checks that a MuJoCo-side constructor raises
+`ImportError` there, composes a selection set that has no snapshot
+(`domain_rand=off`) with an override, merges the benchmark suite's motion
+library with `motion/package.py` and times config 2's rollout at 8 envs.
 
 `mujoco` may be imported only inside functions of the seven port modules of
 the MuJoCo side (`MUJOCO_MODULES`), so that every module imports on the
@@ -168,6 +170,16 @@ SCRIPT = textwrap.dedent("""
         raise AssertionError("MujocoSimulator built without mujoco")
     except ImportError:
         pass
+    from pbhc_tpu_torch.eval import benchmarks
+    from pbhc_tpu_torch.motion import package
+    cfg = compose([s if not s.startswith("domain_rand=") else "domain_rand=off" for s in v1],
+                  ["obs.history_length=3"])
+    assert cfg.domain_rand.randomize_friction is False
+    lib = package.merge("{base_dir}/lib.pkl", [benchmarks.POSE, benchmarks.PUNCH, benchmarks.KICK])
+    assert [r[1] for r in package.info(lib)] == [210, 200, 179]
+    eps, env, detail = benchmarks._env_throughput(
+        benchmarks.V1, ["robot.motion.motion_file=" + benchmarks.WALK], 8, 2, "cpu")
+    assert eps > 0 and all(np.isfinite(detail["reward_sums"]))
     leaked = [n for n, m in sys.modules.items() if n.split(".")[0] in BLOCKED and m is not None]
     assert not leaked, leaked
     print("modules", len(names), "ISOLATION OK")

@@ -89,3 +89,31 @@ def test_motion_path_of_another_checkout_resolves_here(given, tmp_path, monkeypa
     _equal(joblib.load(want), tml.load_motion_dict(given))
     with pytest.raises(FileNotFoundError, match="no_such_clip"):
         tml.resolve_motion_file(given.replace("g1_ue_walk_23dof", "no_such_clip"))
+
+
+COMPRESS = [0, 3, ("gzip", 3), ("bz2", 3), ("xz", 3), ("lzma", 3)]
+
+
+@pytest.mark.parametrize("compress", COMPRESS, ids=str)
+def test_reader_matches_joblib_compressed(compress, tmp_path):
+    """A motion clip and arrays of every layout the reader branches on,
+    dumped by joblib at each `compress` setting: with compress 0 joblib pads
+    each array to its alignment (`numpy_array_alignment_bytes`), inside a
+    compressed stream it does not."""
+    clip = joblib.load(REPO / "assets" / "motions" / "Horse-stance_pose.pkl")
+    extra = {"fortran": np.asfortranarray(np.arange(12.0).reshape(3, 4)),
+             "big_endian": np.arange(5, dtype=">i4"), "objects": np.array([1, "a", None], dtype=object),
+             "empty": np.zeros((0, 3), np.float32), "scalar": np.float64(2.5), "tuple": (1, "x")}
+    path = tmp_path / "clip.pkl"
+    joblib.dump({**clip, "extra": extra}, path, compress=compress)
+    want = joblib.load(path)
+    _equal(want, tml.load_joblib(path))
+    _equal(want, tml.load_motion_dict(path))
+
+
+@pytest.mark.parametrize("head", [b"\x04\x22\x4d\x18lz4 frame", b"not a pickle"], ids=["lz4", "unknown"])
+def test_reader_refuses_unknown_header(head, tmp_path):
+    path = tmp_path / "clip.pkl"
+    path.write_bytes(head)
+    with pytest.raises(ValueError, match="header"):
+        tml.load_joblib(path)
