@@ -38,7 +38,13 @@ holds every CUDA kernel they launch against its plain PyTorch version:
 - the benchmark suite: `pbhc_tpu_torch.eval.benchmarks.main`, configs 2-5
   (walk tracking at 64 envs, horse-stance punch at 4096, KungfuBot2 29-DoF
   over a merged library of three 23-DoF clips at 2048, 29-DoF walk at 1024;
-  kernel 1).
+  kernel 1);
+- env-axis data parallelism: the training CLI under 2 gloo ranks that share
+  the card (2 x 2048 envs) and under a 1-rank nccl group (4096 envs), spawned
+  by `pbhc_tpu_torch.parallel.mesh.run_ranks` (kernel 1);
+- the offline motion pipeline: `retarget_smpl_joints` over 200 frames,
+  `python -m pbhc_tpu_torch.motion.smpl_npz`, the contact mask and the
+  stability filter on the card, and `eval_agent`'s `save_motion=true`.
 Phases, each announced when it starts and when it ends:
 
   build            - compile both kernels from `pbhc_tpu_torch/csrc/` (nvcc, sm_90a, in parallel)
@@ -64,6 +70,14 @@ Phases, each announced when it starts and when it ends:
   train-pallas     - the training CLI for 2 iterations, solver pallas; launches counted from 0
   update           - one minibatch update on the card and on the CPU, same state and batch
   checkpoint       - read back the `.pkl` the train-pallas run wrote
+  dp               - (a) one rollout of the train-lanes state split by env: its update on 2 gloo ranks
+                     sharing the card against the one-process update (each tensor's distance over
+                     its movement, lr; beside the one process with every minibatch's rows reversed
+                     and on other permutations); (b) the training CLI
+                     under those 2 ranks, 2 x 2048 envs, 2 iterations (launches counted from 0 per rank:
+                     96 per iteration each; replicas bit-identical; rank 0's checkpoint read back);
+                     (c) the same under a 1-rank nccl group at 4096 envs; (d) `parallel.dryrun` on
+                     the card, 2 ranks x 4 envs sharing it; one JSON line {"dp": ...}
   train-terrain-lanes  - the training CLI with terrain=locomotion, 1 iteration, solver lanes
   train-terrain-pallas - the same with solver pallas
   train-phase      - the training CLI with phase-aware (sinusoidal) MHPPO networks, 1 iteration, lanes
@@ -75,8 +89,9 @@ Phases, each announced when it starts and when it ends:
   train-kb2-moe    - the training CLI, KungfuBot2 teacher with MoE actor and critic, 1 iteration
                      (RL + DAgger); the load-balance loss logged
   update-kb2-moe   - one PPOMimic RL minibatch update of the MoE nets on the card and on the CPU
-  eval-agent       - the evaluation CLI on a copy of the side-kick run; its export against the
-                     CPU's, its completion ratio and families against the JAX package's
+  eval-agent       - the evaluation CLI on a copy of the side-kick run with save_motion=true; its
+                     export against the CPU's, its completion ratio and families against the JAX
+                     package's, its motion clip read back in the JAX package's schema
   deploy           - the student export on the card against the CPU's and the JAX package's hash;
                      the student's deploy chain over 100 control steps at 2048 envs (launches counted
                      from 0); the side-kick's host executors against its actor on the card; the teleop
@@ -85,6 +100,11 @@ Phases, each announced when it starts and when it ends:
                      2048 and 1024 envs, 30 warm-up and 30 timed steps each (launches counted from 0
                      per config: 4 per step); config 4's library merged by `motion/package.merge`; one
                      JSON line per config and one {"suite": ...} line
+  motion           - the retarget fit of 200 frames at 600 iterations (the committed clip's joints and
+                     synthetic ones) against the JAX package's errors, 50 iterations card vs CPU, the
+                     motion tools' FK, contact mask and stability filter card vs CPU, the smpl_npz CLI
+                     on a seeded smpl.npz read back by the port's reader and MotionLib; one JSON line
+                     {"motion": ...}
   report           - the `kernels` JSON line, the card line, the final result line
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
@@ -236,6 +256,45 @@ DEPLOY_ACT_ATOL = 1e-4
 # tests/test_torch_env.py::OFF off (tests/test_student_obs.py's noise list)
 STUDENT_OFF = ["obs.noise_scales.base_ang_vel=0", "obs.noise_scales.dof_pos=0", "obs.noise_scales.dof_vel=0",
                "obs.noise_scales.roll_pitch=0"] + [o for o in EVAL_OFF if o.startswith("domain_rand.")]
+# - phase dp: 2 data-parallel ranks (gloo, sharing the card) and the 1-rank
+#   nccl group train DP_ITERS iterations each. The update of the rollout split
+#   over the 2 ranks is held to the one-process update of the whole, tensor by
+#   tensor, by the distance between the two over the distance the tensor moved:
+#   at most DP_RTOL. Not by an absolute bound: over its 20 Adam steps the one
+#   process parts from itself, given the same minibatches with their rows in
+#   reverse, by up to ~1e-5 (Adam turns the rounding of gradients that cancel
+#   into lr-sized steps), as the split does; three H100 runs read 5.96e-08,
+#   1.332e-07 and 3.470e-05 against the 1e-5 bound that
+#   tests/test_torch_parallel.py keeps on the CPU, where a fixed seeded batch
+#   from a primed Adam state stays inside it. Both comparisons are printed
+#   beside the same update on other permutations (other samples in every
+#   minibatch, the size of a fault), which must part by more than DP_RTOL.
+DP_WORLD = 2
+DP_ITERS = 2
+DP_RTOL = 2e-2
+# - phase motion: the JAX package's own fits on the CPU (JAX_PLATFORMS=cpu
+#   PYTHONPATH=.:tests python -c "from test_torch_retarget import
+#   synthetic_joints; ...retarget_smpl_joints(load_g1_motion_model(), J,
+#   iters=600)['retarget_mean_error_m']" with J the 200 frames of
+#   Horse-stance_punch's smpl_joints, all zeros in every committed clip, and
+#   J = synthetic_joints(200)); the smpl_npz CLI's fit is JAX's
+#   `npz_to_clip(<write_smpl_npz(T=30)>, iters=600)`. The card is held within
+#   2 mm of each (the fit's 600 Adam steps part the float32 paths: the port on
+#   the CPU gives 0.0190947 and 0.0163541, 0.13 mm and 7 um off).
+RETARGET_JAX_ERR_CLIP = 0.01896694116294384
+RETARGET_JAX_ERR_SYNTH = 0.01634683459997177
+SMPL_NPZ_JAX_ERR = 0.008459036238491535
+RETARGET_ERR_BAND = 2e-3
+RETARGET_MAX_ERR = 0.08
+# - the fit on the card against the port on the CPU after 50 iterations:
+#   1e-3 on every parameter. One float32 ulp of noise on the targets moves
+#   them by up to 3.3e-5 on the CPU (measured over three draws); the card's
+#   other summation orders are noise of that kind at every step; 1e-3 is 30
+#   times that and a twentieth of one Adam step (lr 0.02).
+RETARGET_CARD_CPU_ATOL = 1e-3
+# - the motion tools' FK on the card against the CPU: 1e-5 m (float32 FK,
+#   other summation orders); the contact mask built on it exactly.
+MOTION_FK_ATOL = 1e-5
 TELEOP = ["env.config.use_teleop_control=true", "env.config.teleop_port=0"]
 
 
@@ -397,6 +456,92 @@ def host_tick_us(fn, calls=1000):
         fn()
         ticks.append(time.perf_counter() - t0)
     return statistics.median(ticks) * 1e6
+
+
+
+def _leaves(tree):
+    """The arrays of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def synthetic_smpl_joints(T, seed=0):
+    """SMPL joints [T,24,3] of a seeded pose sequence (smooth sinusoids about
+    the upright root, walking forward) through the neutral skeleton's FK,
+    floored and scaled to the G1 as `npz_to_clip` does: the recipe of
+    tests/test_torch_retarget.py::synthetic_joints (the committed clips'
+    `smpl_joints` are all zeros, a degenerate target)."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation as sRot
+
+    from pbhc_tpu_torch.motion.smpl_npz import smpl_fk
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(T) / 30.0
+    poses = np.zeros((T, 24, 3))
+    poses[:, 0] = sRot.from_euler("xyz", [np.pi / 2, 0, np.pi]).as_rotvec()
+    amp, freq, phase_ = rng.uniform(0, 0.4, (24, 3)), rng.uniform(0.3, 1.5, (24, 3)), rng.uniform(0, 6.3, (24, 3))
+    poses[:, 1:] = (amp * np.sin(2 * np.pi * freq * t[:, None, None] + phase_))[:, 1:]
+    j = smpl_fk(poses, np.stack([0.3 * t, np.zeros(T), np.full(T, 0.9)], 1))
+    j[..., 2] -= j[:, [7, 8, 10, 11], 2].min()
+    return (j * 0.85).astype(np.float32)
+
+
+def write_smpl_npz(path, T):
+    """A GVHMR-schema `smpl.npz` by tests/test_smpl_npz.py's `_write_npz`
+    recipe: the upright rest pose, walking 1 m along x at 0.9 m height."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation as sRot
+
+    poses = np.zeros((T, 72))
+    poses[:, :3] = sRot.from_euler("xyz", [np.pi / 2, 0, np.pi]).as_rotvec()
+    trans = np.stack([np.linspace(0, 1.0, T), np.zeros(T), np.full(T, 0.9)], axis=1)
+    np.savez(path, betas=np.zeros(10), gender="neutral", poses=poses, trans=trans, mocap_framerate=30.0)
+
+
+def dp_rank(learn, train_argv):
+    """One rank of phase dp, in a process group that `run_ranks` set up.
+    `learn` (argv, state, rollout halves, permutations; or None): the v1
+    update phase on this rank's half of a rollout. `train_argv`: the training
+    CLI, its launches counted from 0. Returns numpy results."""
+    import torch
+
+    from pbhc_tpu_torch import train
+    from pbhc_tpu_torch.agents.convert import flax_params
+    from pbhc_tpu_torch.config.loader import compose, parse_cli
+    from pbhc_tpu_torch.parallel.mesh import make_mesh
+    from pbhc_tpu_torch.sim import contact_kernel
+
+    out = {}
+    if learn is not None:
+        argv, state_path, half_paths, perms_path = learn
+        cfg = compose(*parse_cli(argv))
+        _, algo, ts = train.build(cfg, make_mesh(int(cfg.num_envs)))
+        dev, rank = algo.device, algo.shard.rank
+        state = torch.load(state_path, weights_only=False)
+        ts.actor.load_state_dict(state["actor"])
+        ts.critic.load_state_dict(state["critic"])
+        ts.actor_opt.load_state_dict(state["actor_opt"])
+        ts.critic_opt.load_state_dict(state["critic_opt"])
+        ts.lr = state["lr"].to(dev)
+        half = torch.load(half_paths[rank], map_location=dev, weights_only=False)
+        perms = [p.to(dev) for p in torch.load(perms_path, weights_only=False)]
+        t0 = time.perf_counter()
+        ts, _ = algo.learn(ts, (None, half["obs"], half["traj"], {}), perms=perms)
+        torch.cuda.synchronize()
+        out["learn"] = {"params": [p.detach().cpu().numpy() for p in [*ts.actor.parameters(), *ts.critic.parameters()]],
+                        "lr": float(ts.lr), "seconds": time.perf_counter() - t0}
+        del algo, ts, half
+        torch.cuda.empty_cache()
+    k1, k2 = contact_kernel.apgd_lanes, contact_kernel.apgd_envfirst
+    k1.launches = k2.launches = 0
+    algo, ts, logs = train.main(train_argv)
+    torch.cuda.synchronize()
+    out["train"] = {"logs": logs, "launches": {"apgd_lanes": k1.launches, "apgd_envfirst": k2.launches},
+                    "actor": flax_params(ts.actor), "critic": flax_params(ts.critic),
+                    "local_envs": algo.env.num_envs, "world": algo.shard.world, "backend": algo.shard.backend}
+    return out
 
 
 def main():
@@ -772,7 +917,156 @@ def main():
         if not (same and payload["iteration"] == TRAIN_ITERS["pallas"]):
             log("FAIL: the checkpoint does not read back")
             ok = False
-    del trained, algo, ts
+    with phase("dp"):
+        # env-axis data parallelism on bench.py's v1 training cell (4096 envs,
+        # lanes): (a) one rollout of the train-lanes state on this process,
+        # split by env, learned on 2 gloo ranks sharing the card against the
+        # one-process update on the whole; (b) the training CLI under those 2
+        # ranks (2 x 2048 envs); (c) the training CLI under a 1-rank nccl group
+        # at 4096 envs. Launches counted from 0 in each rank (b, c).
+        from pbhc_tpu_torch.parallel.mesh import run_ranks
+
+        base = os.path.join(REPO, "build", "chip_smoke", "dp")
+        shutil.rmtree(base, ignore_errors=True)
+        os.makedirs(base)
+        algo, ts, lanes_logs, _ = trained["lanes"]
+        # the configured initial lr, so that the update moves the weights
+        ts.lr = torch.tensor(float(algo.config.actor_learning_rate), device=dev)
+        names = [f"{net}.{n}" for net in ("actor", "critic") for n, _ in getattr(ts, net).named_parameters()]
+        _, obs, traj, _ = algo.rollout(ts)
+        n_all, T = algo.env.num_envs, algo.num_steps
+        gen = torch.Generator(device=dev).manual_seed(11)
+        perms = [torch.randperm(T * n_all, generator=gen, device=dev) for _ in range(algo.num_epochs)]
+        paths = {k: os.path.join(base, f"{k}.pt") for k in ("state", "perms", "half0", "half1")}
+        torch.save([p.cpu() for p in perms], paths["perms"])
+        torch.save({"actor": {k: v.cpu() for k, v in ts.actor.state_dict().items()},
+                    "critic": {k: v.cpu() for k, v in ts.critic.state_dict().items()},
+                    "actor_opt": ts.actor_opt.state_dict(), "critic_opt": ts.critic_opt.state_dict(),
+                    "lr": ts.lr.cpu()}, paths["state"])
+        for r in range(DP_WORLD):
+            sl = slice(r * n_all // DP_WORLD, (r + 1) * n_all // DP_WORLD)
+            torch.save({"obs": {"critic_obs": obs["critic_obs"][sl].cpu()},
+                        "traj": {k: v[:, sl].cpu() for k, v in traj.items()}}, paths[f"half{r}"])
+        params = lambda: [p.detach().cpu().numpy() for p in [*ts.actor.parameters(), *ts.critic.parameters()]]
+        start = params()
+
+        def learn_once(p):
+            """The one-process update of the saved state on the rollout, permutations `p`."""
+            state = torch.load(paths["state"], weights_only=False)
+            ts.actor.load_state_dict(state["actor"])
+            ts.critic.load_state_dict(state["critic"])
+            ts.actor_opt.load_state_dict(state["actor_opt"])
+            ts.critic_opt.load_state_dict(state["critic_opt"])
+            ts.lr = state["lr"].to(dev)
+            t0 = time.perf_counter()
+            algo.learn(ts, (None, obs, traj, {}), perms=p)
+            torch.cuda.synchronize()
+            return params(), float(ts.lr), time.perf_counter() - t0
+
+        one, lr_one, learn_one_s = learn_once(perms)
+        # the same update with every minibatch's rows reversed (the same sums
+        # in another order: the scale of rounding), and on other permutations
+        # (other samples in every minibatch: the scale of a fault)
+        mb = T * n_all // algo.num_minibatches
+        reordered = learn_once([torch.cat([p[i * mb:(i + 1) * mb].flip(0) for i in range(algo.num_minibatches)])
+                                for p in perms])[0]
+        gen.manual_seed(12)
+        resampled = learn_once([torch.randperm(T * n_all, generator=gen, device=dev) for _ in perms])[0]
+        del obs, traj
+        torch.cuda.empty_cache()
+
+        def dp_argv(name, n):
+            return TRAIN_SELECTIONS + [f"num_envs={n}", TRAIN_OVERRIDES[1], "simulator.config.solver=lanes",
+                                       f"algo.config.num_learning_iterations={DP_ITERS}",
+                                       "algo.config.logging_interval=5", f"base_dir={base}/{name}",
+                                       f"artifact_dir={base}/{name}/artifacts"]
+
+        learn = (TRAIN_SELECTIONS + TRAIN_OVERRIDES + ["simulator.config.solver=lanes"], paths["state"],
+                 [paths["half0"], paths["half1"]], paths["perms"])
+        t0 = time.perf_counter()
+        ranks = run_ranks(dp_rank, DP_WORLD, (learn, dp_argv("two", NUM_ENVS)), backend="gloo", timeout=600)
+        two_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (nccl,) = run_ranks(dp_rank, 1, (None, dp_argv("nccl", NUM_ENVS)), backend="nccl", timeout=600)
+        nccl_s = time.perf_counter() - t0
+
+        def parted(got):
+            """(the worst tensor's |got - one| / |one - start|, its name, the max abs diff)."""
+            rel = [float(np.linalg.norm(g - o) / max(np.linalg.norm(o - s0), 1e-30))
+                   for g, o, s0 in zip(got, one, start)]
+            i = int(np.argmax(rel))
+            return rel[i], names[i], max(float(np.abs(g - o).max()) for g, o in zip(got, one))
+
+        split = max(parted(r["learn"]["params"]) for r in ranks)
+        rounding, fault = parted(reordered), parted(resampled)
+        lrs = [r["learn"]["lr"] for r in ranks]
+        log(f"dp (a): update on {DP_WORLD} gloo ranks x {n_all // DP_WORLD} envs vs one process on {n_all}, "
+            f"worst tensor's distance over its movement {split[0]:.3e} ({split[1]}; tol {DP_RTOL:g}), max abs "
+            f"diff {split[2]:.3e}; the one process against itself with rows reversed {rounding[0]:.3e} "
+            f"({rounding[1]}), max abs {rounding[2]:.3e}; on other permutations {fault[0]:.3e} ({fault[1]}), "
+            f"max abs {fault[2]:.3e}; lr {lrs} vs {lr_one!r}")
+        if not (split[0] <= DP_RTOL and fault[0] > DP_RTOL and all(lr == lr_one for lr in lrs)):
+            log("FAIL: dp: the data-parallel update disagrees with the one-process update "
+                "(or the bound does not tell other samples apart)")
+            ok = False
+        for name, results in (("dp", [r["train"] for r in ranks]), ("dp-nccl", [nccl["train"]])):
+            for n in ("apgd_lanes", "apgd_envfirst"):
+                launches[n][name] = sum(r["launches"][n] for r in results)
+            for r, res in enumerate(results):
+                bad = sorted({k for x in res["logs"] for k, v in x.items() if not np.isfinite(v)})
+                want = {"apgd_lanes": 96 * DP_ITERS, "apgd_envfirst": 0}
+                log(f"{name} rank {r}/{res['world']} ({res['backend']}, {res['local_envs']} envs): launches "
+                    f"{res['launches']}, per iteration rollout/update seconds "
+                    + ", ".join(f"{x['rollout_s']:.3f}/{x['update_s']:.3f}" for x in res["logs"])
+                    + f", replica checksums {[x.get('replica_checksum') for x in res['logs']]}")
+                if bad or len(res["logs"]) != DP_ITERS or res["launches"] != want:
+                    log(f"FAIL: {name} rank {r}: non-finite {bad}, {len(res['logs'])} logged iterations, "
+                        f"launches {res['launches']} (want {want})")
+                    ok = False
+        two = [r["train"] for r in ranks]
+        sums = [[x["replica_checksum"] for x in res["logs"]] for res in two]
+        if sums[0] != sums[1] or not all(
+                np.array_equal(a, b) for a, b in zip(_leaves(two[0]["actor"]), _leaves(two[1]["actor"]))):
+            log(f"FAIL: dp: the ranks' replicated state differs: checksums {sums}")
+            ok = False
+        ckpts = glob.glob(os.path.join(base, "two", "PBHC_TPU", "*", "ckpt", f"model_{DP_ITERS}.pkl"))
+        nets = []
+        if len(ckpts) == 1:
+            payload = load_checkpoint_payload(ckpts[0])
+            cfg = compose(TRAIN_SELECTIONS, [f"num_envs={NUM_ENVS}"])
+            nets = [flax_params(from_flax(payload["actor_params"], actor_from_config(cfg, algo.actor_dim, algo.num_act))),
+                    flax_params(from_flax(payload["critic_params"],
+                                          critic_from_config(cfg, algo.critic_dim, algo.num_rew)))]
+        same = len(nets) == 2 and all(np.array_equal(a, b) for got, want in zip(nets, (two[0]["actor"], two[0]["critic"]))
+                                      for a, b in zip(_leaves(got), _leaves(want)))
+        log(f"dp (b): rank 0's checkpoints {[os.path.relpath(c, REPO) for c in ckpts]} read back through convert.py "
+            f"{'identical' if same else 'DIFFERENT'} to its train state")
+        if not same:
+            log("FAIL: dp: rank 0's checkpoint does not load as its train state")
+            ok = False
+        # (d) the dryrun entry point on the card: its ranks share cuda:0 (gloo)
+        from pbhc_tpu_torch.parallel.dryrun import ENVS_PER_RANK, dryrun_multichip
+
+        t0 = time.perf_counter()
+        dry_reward = dryrun_multichip(DP_WORLD, device="cuda", timeout=300)
+        dry_s = time.perf_counter() - t0
+        log(f"dp (d): parallel.dryrun on the card, {DP_WORLD} ranks x {ENVS_PER_RANK} envs: "
+            f"reward/step {dry_reward:.4f} in {dry_s:.1f} s")
+        if not np.isfinite(dry_reward):
+            log("FAIL: dp: the dryrun's reward is not finite")
+            ok = False
+        sec = lambda x: x["rollout_s"] + x["update_s"]
+        dp = {"update_seconds": {"one_process": learn_one_s, "gloo_ranks": [r["learn"]["seconds"] for r in ranks]},
+              "iteration_seconds": {"single_process_4096": [sec(x) for x in lanes_logs],
+                                    "gloo_2x2048": [sec(x) for x in two[0]["logs"]],
+                                    "nccl_1x4096": [sec(x) for x in nccl["train"]["logs"]]},
+              "call_seconds": {"gloo_2x2048": two_s, "nccl_1x4096": nccl_s, "dryrun_gloo_2x4": dry_s},
+              "params_max_abs_diff": split[2],
+              "relative_distance": {"split": split[0], "rows_reversed": rounding[0], "other_permutations": fault[0]},
+              "card": card}
+        print(json.dumps({"dp": dp}), flush=True)
+        del algo, ts, ranks, nccl
+    del trained
     torch.cuda.empty_cache()
 
     for solver in ("lanes", "pallas"):
@@ -941,7 +1235,7 @@ def main():
         run = os.path.join(base, "card", EVAL_RUN)
         shutil.copytree(os.path.join(REPO, "artifacts", EVAL_RUN), run)
         ckpt = os.path.join(run, "ckpt", "model_10500.pkl")
-        res = count("eval-agent", lambda: eval_agent.main([f"checkpoint={ckpt}", *EVAL_OFF]))
+        res = count("eval-agent", lambda: eval_agent.main([f"checkpoint={ckpt}", *EVAL_OFF, "save_motion=true"]))
         # the CPU's export of the same checkpoint, as the CLI writes it
         env, actor, cfg = batch_eval.load(ckpt, 1, EVAL_OFF, device="cpu")
         cpu_npz = export_policy(actor, load_checkpoint_payload(ckpt)["actor_params"], env,
@@ -965,6 +1259,23 @@ def main():
             if not abs(fams[k] - v) <= EVAL_REL_BAND * v:
                 log(f"FAIL: eval-agent: {k} {fams[k]:.5f} outside {v} +- {EVAL_REL_BAND:.0%}")
                 ok = False
+        # save_motion=true: the rollout as a motion clip, read back by the
+        # port's joblib reader in the JAX package's schema (`pbhc_tpu/eval_agent.py:215-227`)
+        from pbhc_tpu_torch.motion.motion_lib import load_joblib
+
+        motion = load_joblib(os.path.join(run, "motion_model_10500.pkl"))
+        f32, nd = np.dtype(np.float32), 23
+        schema = {"root_trans_offset": ((steps, 3), f32), "root_rot": ((steps, 4), f32), "dof": ((steps, nd), f32),
+                  "pose_aa": ((steps, 1 + nd + env.num_extend, 3), f32), "fps": int,
+                  "contact_mask": ((steps, 2), np.dtype(np.float64)), "dof_vel": ((steps, nd), f32),
+                  "root_lin_vel": ((steps, 3), f32), "root_ang_vel": ((steps, 3), f32), "action": ((steps, nd), f32)}
+        clip = motion.get("rollout", {})
+        got = {k: type(v) if not isinstance(v, np.ndarray) else (v.shape, v.dtype) for k, v in clip.items()}
+        log(f"eval-agent: save_motion clip keys {list(motion)} / {list(got)}, fps {clip.get('fps')}")
+        if list(motion) != ["rollout"] or got != schema or list(clip) != list(schema) or clip["fps"] != 50 \
+                or not all(np.isfinite(v).all() for v in clip.values() if isinstance(v, np.ndarray)):
+            log(f"FAIL: eval-agent: save_motion wrote {got}, want {schema}")
+            ok = False
         del env, actor
     torch.cuda.empty_cache()
 
@@ -1093,6 +1404,89 @@ def main():
             del res
             torch.cuda.empty_cache()
         print(json.dumps({"suite": suite, "card": card}), flush=True)
+
+    with phase("motion"):
+        # the offline motion pipeline on the card: the retarget fit of 200
+        # frames at 600 iterations (the committed clip's joints and synthetic
+        # ones) against the JAX package's figures, the fit on the card against
+        # the CPU, the motion tools' FK, and the smpl_npz CLI end to end
+        import subprocess
+
+        from pbhc_tpu_torch.model.g1 import load_g1_motion_model, load_g1_sim_model
+        from pbhc_tpu_torch.model.kinematics import fk_pose_aa
+        from pbhc_tpu_torch.motion import filter as motion_filter
+        from pbhc_tpu_torch.motion import tools as motion_tools
+        from pbhc_tpu_torch.motion.motion_lib import MotionLib, load_joblib
+        from pbhc_tpu_torch.motion.retarget import retarget_smpl_joints
+
+        base = os.path.join(REPO, "build", "chip_smoke", "motion")
+        shutil.rmtree(base, ignore_errors=True)
+        os.makedirs(base)
+        model, sim_model = load_g1_motion_model(), load_g1_sim_model()
+        secs, errs = {}, {}
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            return out
+
+        clip_joints = next(iter(load_joblib("assets/motions/Horse-stance_punch.pkl").values()))["smpl_joints"]
+        synth = synthetic_smpl_joints(200)
+        for name, joints, want in (("clip", clip_joints, RETARGET_JAX_ERR_CLIP),
+                                   ("synthetic", synth, RETARGET_JAX_ERR_SYNTH)):
+            fit = timed(f"retarget_{name}", lambda: retarget_smpl_joints(model, joints, iters=600, device=dev))
+            errs[name] = fit["retarget_mean_error_m"]
+            log(f"motion: retarget of {len(joints)} frames ({name}) at 600 iterations: retarget_mean_error_m "
+                f"{errs[name]!r} (JAX {want!r}) in {secs[f'retarget_{name}']:.3f} s on {card}")
+            if not (errs[name] < RETARGET_MAX_ERR and abs(errs[name] - want) <= RETARGET_ERR_BAND
+                    and all(np.isfinite(v).all() for v in fit.values() if isinstance(v, np.ndarray))):
+                log(f"FAIL: motion: retarget ({name}) error {errs[name]} not below {RETARGET_MAX_ERR} and within "
+                    f"{RETARGET_ERR_BAND} of {want}")
+                ok = False
+        card_fit = timed("retarget_50_card", lambda: retarget_smpl_joints(model, synth, iters=50, device=dev))
+        cpu_fit = timed("retarget_50_cpu", lambda: retarget_smpl_joints(model, synth, iters=50, device="cpu"))
+        fit_diff = {k: float(np.abs(card_fit[k] - cpu_fit[k]).max())
+                    for k in ("root_trans_offset", "root_rot", "dof", "pose_aa")}
+        log(f"motion: 50 fit iterations, card vs CPU: max abs diff {fit_diff} (tol {RETARGET_CARD_CPU_ATOL:g})")
+        if max(fit_diff.values()) > RETARGET_CARD_CPU_ATOL:
+            log("FAIL: motion: the card's retarget fit disagrees with the CPU's")
+            ok = False
+
+        horse = next(iter(load_joblib("assets/motions/Horse-stance_pose.pkl").values()))
+        f32 = lambda x, d: torch.as_tensor(np.asarray(x, dtype=np.float32), device=d)
+        with torch.no_grad():
+            fk = {d: fk_pose_aa(model, f32(horse["pose_aa"], d), f32(horse["root_trans_offset"], d))[0].cpu().numpy()
+                  for d in (dev, "cpu")}
+        masks = {d: timed(f"contact_mask_{d}", lambda: motion_tools.compute_contact_mask(horse, device=d))["contact_mask"]
+                 for d in (dev, "cpu")}
+        stab = {d: timed(f"stability_{d}", lambda: motion_filter.stability_score(
+            model, sim_model, horse["pose_aa"], horse["root_trans_offset"], horse["fps"], device=d)) for d in (dev, "cpu")}
+        fk_diff = float(np.abs(fk[dev] - fk["cpu"]).max())
+        com_diff = float(np.abs(stab[dev]["com_support_dist"] - stab["cpu"]["com_support_dist"]).max())
+        log(f"motion: FK of {len(fk['cpu'])} frames card vs CPU {fk_diff:.3e}, contact masks equal "
+            f"{np.array_equal(masks[dev], masks['cpu'])}, CoM support distance {com_diff:.3e}")
+        if not (fk_diff <= MOTION_FK_ATOL and com_diff <= MOTION_FK_ATOL and np.array_equal(masks[dev], masks["cpu"])
+                and stab[dev]["grounded_frames"] == stab["cpu"]["grounded_frames"]):
+            log("FAIL: motion: the motion tools on the card disagree with the CPU")
+            ok = False
+
+        npz, pkl = os.path.join(base, "smpl.npz"), os.path.join(base, "walk.pkl")
+        write_smpl_npz(npz, 30)
+        cli = timed("smpl_npz_cli", lambda: subprocess.run(
+            [sys.executable, "-m", "pbhc_tpu_torch.motion.smpl_npz", npz, pkl, "--name", "walk"], cwd=REPO,
+            capture_output=True, text=True, timeout=300))
+        walk = load_joblib(pkl)["walk"] if cli.returncode == 0 else {}
+        frames = int(MotionLib(pkl, model, 1, 0.02, device=dev).data.num_frames[0]) if walk else 0
+        errs["smpl_npz"] = walk.get("retarget_mean_error_m", float("nan"))
+        log(f"motion: smpl_npz CLI rc {cli.returncode}: {cli.stdout.strip().splitlines()[-1:]} "
+            f"retarget_mean_error_m {errs['smpl_npz']!r} (JAX {SMPL_NPZ_JAX_ERR!r}); MotionLib frames {frames}")
+        if cli.returncode != 0 or frames != 30 or not abs(errs["smpl_npz"] - SMPL_NPZ_JAX_ERR) <= RETARGET_ERR_BAND:
+            log(f"FAIL: motion: smpl_npz CLI: {cli.stderr[-2000:]}")
+            ok = False
+        print(json.dumps({"motion": {"seconds": secs, "retarget_mean_error_m": errs, "card_vs_cpu_50": fit_diff,
+                                     "fk_card_vs_cpu": fk_diff, "card": card}}), flush=True)
 
     if not ok:
         log("chip_smoke: FAILED")

@@ -15,14 +15,22 @@ max_norm / |g| only when |g| exceeds max_norm, no epsilon), written out here
 with optax's Adam (eps 1e-8 outside the square root), with the lr a device
 tensor so that no step waits on the host.
 
-Randomness comes from one `torch.Generator` on the env's device (actions, the
-minibatch permutations, L2C2 interpolation); fresh network weights from a CPU
-generator seeded with the run's seed, so that a run gets the same initial
-weights on every device.
+Randomness comes from `torch.Generator`s on the env's device: actions and
+L2C2 interpolation from a per-rank one, the minibatch permutations from one
+seeded alike on every rank (one generator for both in a single process);
+fresh network weights from a CPU generator seeded with the run's seed, so
+that a run gets the same initial weights on every device.
+
+Under env-axis data parallelism (`parallel/mesh.py`) each rank holds its
+envs' rows of the rollout: a minibatch is the rows of the global
+permutation's slice that fall in them, every loss is the rank's share of the
+global minibatch mean, and the gradients, the KL and the logged losses are
+summed over ranks (one all-reduce per minibatch) before the clip and Adam.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import numpy as np
@@ -97,8 +105,9 @@ class MHPPO:
         self.env = env
         self.device = env.device
         self.seed = int(seed)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(self.seed + 1)         # the env's generator has `seed`
+        self.shard = env.shard
+        # the env's generators have `seed`; `perm_gen` is seeded alike on every rank
+        self.gen, self.perm_gen = self.shard.generators(self.seed + 1, self.device)
         c = self.config
         self.gamma = float(c.gamma)
         self.lam = float(c.lam)
@@ -173,11 +182,11 @@ class MHPPO:
             for k, v in info["log"].items():
                 logs.setdefault(k, []).append(v)
             obs = next_obs
-        return env_state, obs, traj, {k: torch.stack(v) for k, v in logs.items()}
+        return env_state, obs, traj, self.env.global_logs({k: torch.stack(v) for k, v in logs.items()})
 
     def _gae(self, traj, last_values):
         """Per-head GAE; advantages summed over heads, then normalised with the
-        population std (`mh_ppo.py:148`)."""
+        population std over every rank's samples (`mh_ppo.py:148`)."""
         values, rewards, dones = traj["values"], traj["rewards"], traj["dones"]
         advs = torch.empty_like(values)
         adv, v_next = torch.zeros_like(last_values), last_values
@@ -189,7 +198,8 @@ class MHPPO:
             v_next = values[t]
         returns = advs + values                                        # [T,N,R]
         tot_adv = (returns - values).sum(-1)                           # [T,N]
-        adv_norm = (tot_adv - tot_adv.mean()) / (tot_adv.std(correction=0) + 1e-8)
+        mean, std = self.shard.mean_std(tot_adv)
+        adv_norm = (tot_adv - mean) / (std + 1e-8)
         return returns, adv_norm
 
     # ----------------------------------------------------------------- update
@@ -197,9 +207,11 @@ class MHPPO:
         u = torch.rand(obs.shape[:-1] + (1,), generator=self.gen, device=obs.device) * 2 - 1
         return obs + u * (next_obs.to(torch.float32) - obs)
 
-    def _minibatch_update(self, ts: TrainState, batch) -> dict:
-        """One Adam step of actor and critic on `batch` (`mh_ppo.py:167`).
+    def _minibatch_update(self, ts: TrainState, batch, rows: int | None = None) -> dict:
+        """One Adam step of actor and critic on `batch` (`mh_ppo.py:167`), this
+        rank's rows of a minibatch of `rows` rows in all (default: `batch`'s).
         Updates `ts` in place; returns the minibatch's metrics."""
+        avg = functools.partial(self.shard.share, rows=len(batch["actions"]) if rows is None else rows)
         aobs = batch["actor_obs"].to(torch.float32)
         mean, std = ts.actor(aobs)
         logp = gaussian_log_prob(mean, std, batch["actions"])
@@ -207,33 +219,38 @@ class MHPPO:
         adv = batch["advantages"]
         surr = -adv * ratio
         surr_clipped = -adv * torch.clamp(ratio, 1 - self.clip, 1 + self.clip)
-        surrogate = torch.maximum(surr, surr_clipped).mean()
-        entropy = gaussian_entropy(std).mean()
+        surrogate = avg(torch.maximum(surr, surr_clipped))
+        entropy = avg(gaussian_entropy(std))
         a_loss = surrogate - self.entropy_coef * entropy
         if self.l2c2:
             u_mean, _ = ts.actor(self._l2c2_obs(aobs, batch["next_actor_obs"]))
-            a_loss = a_loss + float(self.config.l2c2.lambda_policy) * ((batch["actions"] - u_mean) ** 2).mean()
+            a_loss = a_loss + float(self.config.l2c2.lambda_policy) * avg((batch["actions"] - u_mean) ** 2)
         with torch.no_grad():
             # KL for the adaptive lr (reference mh_ppo.py:469-483)
-            kl = torch.sum(torch.log(std / batch["std"] + 1e-5)
-                           + (batch["std"] ** 2 + (batch["mean"] - mean) ** 2) / (2.0 * std ** 2) - 0.5,
-                           dim=-1).mean()
+            kl = avg(torch.sum(torch.log(std / batch["std"] + 1e-5)
+                               + (batch["std"] ** 2 + (batch["mean"] - mean) ** 2) / (2.0 * std ** 2) - 0.5,
+                               dim=-1))
 
         cobs = batch["critic_obs"].to(torch.float32)
         value = ts.critic(cobs)
         target_v, returns = batch["values"], batch["returns"]
         if self.use_clipped_value_loss:
             v_clipped = target_v + torch.clamp(value - target_v, -self.clip, self.clip)
-            vloss = torch.maximum((value - returns) ** 2, (v_clipped - returns) ** 2).sum(-1).mean()
+            vloss = avg(torch.maximum((value - returns) ** 2, (v_clipped - returns) ** 2).sum(-1))
         else:
-            vloss = ((returns - value) ** 2).sum(-1).mean()
+            vloss = avg(((returns - value) ** 2).sum(-1))
         c_loss = self.value_loss_coef * vloss
         if self.l2c2:
             u_val = ts.critic(self._l2c2_obs(cobs, batch["next_critic_obs"]))
-            c_loss = c_loss + float(self.config.l2c2.lambda_value) * ((value - u_val) ** 2).mean()
+            c_loss = c_loss + float(self.config.l2c2.lambda_value) * avg((value - u_val) ** 2)
 
         a_grads = torch.autograd.grad(a_loss, ts.actor_opt.params)
         c_grads = torch.autograd.grad(c_loss, ts.critic_opt.params)
+        # the ranks' shares summed: global gradients, KL and losses (one all-reduce)
+        na = len(a_grads)
+        *grads, kl, surrogate, vloss, entropy = self.shard.all_sum(
+            [*a_grads, *c_grads, kl, surrogate.detach(), vloss.detach(), entropy.detach()], dtype=torch.float32)
+        a_grads, c_grads = grads[:na], grads[na:]
         # the adaptive lr of this step, from this minibatch's KL (`mh_ppo.py:213-219`)
         lr = ts.lr
         lr = torch.where(kl > self.desired_kl * 2.0, torch.clamp(lr / 1.5, min=1e-5),
@@ -246,10 +263,11 @@ class MHPPO:
                     kl=kl)
 
     def learn(self, ts: TrainState, rollout, perms=None):
-        """The update phase (`mh_ppo.py:235-287`) on a `rollout`: GAE, then for
-        each epoch's permutation (`perms`, drawn from the generator when None)
-        `num_minibatches` minibatch updates. Updates `ts` in place and returns
-        it with the iteration's log (0-d tensors, not synchronised)."""
+        """The update phase (`mh_ppo.py:235-287`) on a `rollout` (this rank's
+        envs): GAE, then for each epoch's permutation of the global flat
+        samples (`perms`, drawn from `perm_gen` when None) `num_minibatches`
+        minibatch updates. Updates `ts` in place and returns it with the
+        iteration's log (0-d tensors, not synchronised)."""
         env_state, obs, traj, env_logs = rollout
         with torch.no_grad():
             last_values = ts.critic(obs["critic_obs"])
@@ -258,19 +276,20 @@ class MHPPO:
         flat = {k: v.reshape(T * N, *v.shape[2:]) for k, v in traj.items()}
         flat["returns"] = returns.reshape(T * N, -1)
         flat["advantages"] = advantages.reshape(T * N)
+        samples = T * self.shard.num_envs                 # over every rank
         if perms is None:
-            perms = [torch.randperm(T * N, generator=self.gen, device=self.device)
+            perms = [torch.randperm(samples, generator=self.perm_gen, device=self.device)
                      for _ in range(self.num_epochs)]
-        mb = T * N // self.num_minibatches
+        mb = samples // self.num_minibatches
         metrics = []
         for perm in perms:
             for i in range(self.num_minibatches):
-                idx = perm[i * mb:(i + 1) * mb]
-                metrics.append(self._minibatch_update(ts, {k: v[idx] for k, v in flat.items()}))
+                idx = self.shard.local_rows(perm[i * mb:(i + 1) * mb])
+                metrics.append(self._minibatch_update(ts, {k: v[idx] for k, v in flat.items()}, mb))
         mean = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
         log = {f"Env/{k}": v.mean() for k, v in env_logs.items()}
         log.update({
-            "Train/mean_step_reward": traj["rewards"].sum(-1).mean(),
+            "Train/mean_step_reward": self.shard.global_mean(traj["rewards"].sum(-1)),
             "Loss/surrogate": mean["surrogate"],
             "Loss/value": mean["value_loss"],
             "Loss/entropy": mean["entropy"],

@@ -8,7 +8,9 @@ the proprioceptive history, a priv MLP encoder, LayerNorm, MLP backbone) and
 global sigma clipped to [min_sigma, max_sigma]). Either backbone may be a
 `MoEMLP` (`mimic_networks.py:20-27`); `act_lb` and `evaluate_lb` then also
 return the load-balance losses of the experts they ran, which flax sows
-(`ppo_mimic.py:227-234` sums them), 0 for MLP backbones.
+(`ppo_mimic.py:227-234` sums them), 0 for MLP backbones; given `dp`, a
+(`parallel/mesh.py::EnvShard`, global minibatch rows) pair, this rank's
+share of them.
 
 Every submodule carries its flax name (`Dense_0`, `Conv_0`, `ln`, ...), so
 `agents/convert.py` maps the flax tree onto it by path. Flax's `nn.Conv`
@@ -40,10 +42,11 @@ def _backbone(kind: str, in_dim, hidden_dims, out_dim, activation, num_experts: 
     return MLP(in_dim, hidden_dims, out_dim, activation)
 
 
-def _with_lb(backbone, x):
+def _with_lb(backbone, x, dp=None):
     """(output, load-balance loss) of a backbone; 0 for an MLP."""
-    out = backbone(x)
-    return out if isinstance(out, tuple) else (out, x.new_zeros(()))
+    if isinstance(backbone, MoEMLP):
+        return backbone(x, dp)
+    return backbone(x), x.new_zeros(())
 
 
 class ConvEncoder(nn.Module):
@@ -89,12 +92,12 @@ class MimicActor(nn.Module):
                                   num_experts, top_k)
         self.ln = LayerNorm(in_dim)
 
-    def forward_lb(self, obs, hist_encoding: bool):
+    def forward_lb(self, obs, hist_encoding: bool, dp=None):
         """(mean action, the backbone's load-balance loss)."""
         motion = self.motion_encoder(obs["future_motion_targets"])
         latent = (self.history_encoder(obs["prop_history"]) if hist_encoding
                   else self.priv_encoder(obs["priv_obs"]))
-        return _with_lb(self.backbone, self.ln(torch.cat([obs["actor_obs"], motion, latent], dim=-1)))
+        return _with_lb(self.backbone, self.ln(torch.cat([obs["actor_obs"], motion, latent], dim=-1)), dp)
 
     def forward(self, obs, hist_encoding: bool):
         return self.forward_lb(obs, hist_encoding)[0]
@@ -125,19 +128,20 @@ class MimicActorCritic(nn.Module):
         self.history_steps, self.history_per_step = history_steps, history_per_step
         self.activation, self.num_actions = activation, num_actions
 
-    def act_lb(self, obs, hist_encoding: bool = False):
+    def act_lb(self, obs, hist_encoding: bool = False, dp=None):
         """((mean, std), the actor backbone's load-balance loss)."""
-        mean, lb = self.actor.forward_lb(obs, hist_encoding)
+        mean, lb = self.actor.forward_lb(obs, hist_encoding, dp)
         std = torch.clamp(torch.abs(self.std), self.min_sigma, self.max_sigma)
         return (mean, std.expand_as(mean)), lb
 
     def act(self, obs, hist_encoding: bool = False):
         return self.act_lb(obs, hist_encoding)[0]
 
-    def evaluate_lb(self, obs):
+    def evaluate_lb(self, obs, dp=None):
         """(values, the critic backbone's load-balance loss)."""
         motion = self.actor.motion_encoder(obs["future_motion_targets"])
-        return _with_lb(self.critic, self.critic_ln(torch.cat([obs["actor_obs"], obs["priv_obs"], motion], dim=-1)))
+        return _with_lb(self.critic, self.critic_ln(torch.cat([obs["actor_obs"], obs["priv_obs"], motion], dim=-1)),
+                        dp)
 
     def evaluate(self, obs):
         return self.evaluate_lb(obs)[0]

@@ -59,7 +59,11 @@ class MoEMLP(nn.Module):
     [E, in, h] per layer, one batched product per layer); a `gate` Dense gives
     softmax probabilities, the top `top_k` are renormalised and mix the
     experts' outputs through a one-hot dispatch. Returns (output, the Switch
-    load-balance loss E * sum_e f_e * P_e), the loss that flax sows."""
+    load-balance loss E * sum_e f_e * P_e), the loss that flax sows. Given
+    `dp`, a (`parallel/mesh.py::EnvShard`, global minibatch rows) pair, `f` is
+    the minibatch mean over every rank (no gradient flows through the one-hot
+    dispatch) and `P` this rank's share of it, so that the ranks' losses sum
+    to the global loss."""
 
     def __init__(self, in_dim: int, hidden_dims: Sequence[int], out_dim: int, num_experts: int = 4,
                  top_k: int = 2, activation: str = "ELU"):
@@ -70,7 +74,7 @@ class MoEMLP(nn.Module):
         self.act = _ACT[activation]()
         self.num_experts, self.top_k = num_experts, top_k
 
-    def forward(self, x):
+    def forward(self, x, dp=None):
         E, K = self.num_experts, self.top_k
         h = x
         for i, layer in enumerate(self.experts):
@@ -83,8 +87,12 @@ class MoEMLP(nn.Module):
         dispatch = nn.functional.one_hot(top_idx, E).to(probs.dtype)  # [N,K,E]
         combine = (weights[..., None] * dispatch).sum(1)              # [N,E]
         out = torch.einsum("ne,neo->no", combine, h)
-        f = dispatch.sum(1).mean(0) / K
-        return out, E * torch.sum(f * probs.mean(0))
+        if dp is None:
+            f, p = dispatch.sum(1).mean(0) / K, probs.mean(0)
+        else:
+            shard, rows = dp
+            f, p = shard.global_mean0(dispatch.sum(1), rows) / K, shard.share0(probs, rows)
+        return out, E * torch.sum(f * p)
 
 
 class LayerNorm(nn.Module):

@@ -24,13 +24,24 @@ Three modes on one `MimicActorCritic`, with the JAX module's semantics:
 
 Each mode is a `rollout` phase and a `learn` phase, as in `MHPPO`, so that
 the training CLI times both. Adam is `mh_ppo.Adam` (optax's global-norm clip
-and Adam written out). Randomness (actions, minibatch permutations) comes
-from one `torch.Generator` on the env's device; fresh weights from a CPU
-generator seeded with the run's seed.
+and Adam written out). Randomness comes from `torch.Generator`s on the env's
+device (actions from a per-rank one, minibatch permutations from one seeded
+alike on every rank; one generator for both in a single process); fresh
+weights from a CPU generator seeded with the run's seed.
+
+Under env-axis data parallelism (`parallel/mesh.py`) each update takes the
+rows of its global minibatch that this rank holds (the RL epochs' global
+permutation, DAgger's and distillation's consecutive global slices), every
+loss is the rank's share of the global minibatch mean, and the gradients and
+logged losses are summed over ranks before the clip and Adam. The MoE
+load-balance loss `E * sum_e f_e * P_e` multiplies two batch means: `f` (no
+gradient) is all-reduced in the forward, `P` is the rank's share, so that
+the ranks' losses sum to the global loss and gradient.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import numpy as np
@@ -101,8 +112,9 @@ class PPOMimic:
         self.env = env
         self.device = env.device
         self.seed = int(seed)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(self.seed + 1)         # the env's generator has `seed`
+        self.shard = env.shard
+        # the env's generators have `seed`; `perm_gen` is seeded alike on every rank
+        self.gen, self.perm_gen = self.shard.generators(self.seed + 1, self.device)
         c = self.config
         self.gamma = float(c.gamma)
         self.lam = float(c.lam)
@@ -190,7 +202,7 @@ class PPOMimic:
                 traj[k][t] = v
             for k, v in info["log"].items():
                 logs.setdefault(k, []).append(v)
-        return env_state, obs, traj, {k: torch.stack(v) for k, v in logs.items()}, hist_encoding
+        return env_state, obs, traj, self.env.global_logs({k: torch.stack(v) for k, v in logs.items()}), hist_encoding
 
     # GAE with advantages summed over heads and normalised with the population
     # std: the same computation as MHPPO's (`ppo_mimic.py:204`, `mh_ppo.py:148`)
@@ -203,68 +215,85 @@ class PPOMimic:
         stage = np.clip((np.float32(iteration) - s[2]) / s[3], np.float32(0), np.float32(1))
         return float(stage * (s[1] - s[0]) + s[0])
 
-    def update_rl(self, ts: MimicTrainState, batch) -> dict:
-        """One RL minibatch (`ppo_mimic.py:236`); updates `ts` in place."""
+    def update_rl(self, ts: MimicTrainState, batch, rows: int | None = None) -> dict:
+        """One RL minibatch (`ppo_mimic.py:236`), this rank's rows of a
+        minibatch of `rows` rows in all (default: `batch`'s); updates `ts` in
+        place."""
+        rows = len(batch["actions"]) if rows is None else rows
+        avg = functools.partial(self.shard.share, rows=rows)
         net = ts.net
         obs = {k: batch[k] for k in OBS_KEYS}
-        (mean, std), lb_a = net.act_lb(obs, False)
+        (mean, std), lb_a = net.act_lb(obs, False, dp=(self.shard, rows))
         ratio = torch.exp(gaussian_log_prob(mean, std, batch["actions"]) - batch["logp"])
         adv = batch["advantages"]
-        surr = torch.maximum(-adv * ratio, -adv * torch.clamp(ratio, 1 - self.clip, 1 + self.clip)).mean()
-        entropy = gaussian_entropy(std).mean()
-        value, lb_v = net.evaluate_lb(obs)
+        surr = avg(torch.maximum(-adv * ratio, -adv * torch.clamp(ratio, 1 - self.clip, 1 + self.clip)))
+        entropy = avg(gaussian_entropy(std))
+        value, lb_v = net.evaluate_lb(obs, dp=(self.shard, rows))
         tv, ret = batch["values"], batch["returns"]
         v_clip = tv + torch.clamp(value - tv, -self.clip, self.clip)
-        vloss = torch.maximum((value - ret) ** 2, (v_clip - ret) ** 2).sum(-1).mean()
+        vloss = avg(torch.maximum((value - ret) ** 2, (v_clip - ret) ** 2).sum(-1))
         priv_lat = net.priv_latent(batch["priv_obs"])
         with torch.no_grad():
             hist_lat = net.hist_latent(batch["prop_history"])
-        priv_reg = torch.linalg.vector_norm(priv_lat - hist_lat, dim=-1).mean()
+        priv_reg = avg(torch.linalg.vector_norm(priv_lat - hist_lat, dim=-1))
         lb = lb_a + lb_v
         loss = (surr - self.entropy_coef * entropy + self.value_loss_coef * vloss
                 + self.priv_reg_coef(ts.iteration) * priv_reg + self.lb_alpha * lb)
         with torch.no_grad():
-            kl = torch.sum(torch.log(std / batch["std"] + 1e-5)
-                           + (batch["std"] ** 2 + (batch["mean"] - mean) ** 2) / (2.0 * std ** 2) - 0.5,
-                           dim=-1).mean()
-        grads = _grads(loss, ts.opt.params)
+            kl = avg(torch.sum(torch.log(std / batch["std"] + 1e-5)
+                               + (batch["std"] ** 2 + (batch["mean"] - mean) ** 2) / (2.0 * std ** 2) - 0.5,
+                               dim=-1))
+        # the ranks' shares summed: global gradients, KL and losses (one all-reduce)
+        *grads, kl, surr, vloss, entropy, priv_reg, lb = self.shard.all_sum(
+            [*_grads(loss, ts.opt.params), kl, *(x.detach() for x in (surr, vloss, entropy, priv_reg, lb))],
+            dtype=torch.float32)
         lr = ts.lr
         ts.lr = torch.where(kl > self.desired_kl * 2.0, torch.clamp(lr / 1.5, min=1e-5),
                             torch.where((kl < self.desired_kl / 2.0) & (kl > 0.0),
                                         torch.clamp(lr * 1.5, max=1e-2), lr))
         ts.opt.step(grads, ts.lr)
-        return dict(surrogate=surr.detach(), value_loss=vloss.detach(), entropy=entropy.detach(), kl=kl,
-                    priv_reg=priv_reg.detach(), load_balancing=lb.detach())
+        return dict(surrogate=surr, value_loss=vloss, entropy=entropy, kl=kl, priv_reg=priv_reg,
+                    load_balancing=lb)
 
-    def update_dagger(self, ts: MimicTrainState, priv_obs, prop_history):
+    def update_dagger(self, ts: MimicTrainState, priv_obs, prop_history, rows: int | None = None):
         """One history-encoder minibatch (`ppo_mimic.py:326`): the history
         latent regresses onto the frozen priv latent; only `hist_opt`'s
-        params (the history encoder) move."""
+        params (the history encoder) move. `rows` as in `update_rl`."""
+        rows = len(priv_obs) if rows is None else rows
         with torch.no_grad():
             target = ts.net.priv_latent(priv_obs)
-        loss = torch.linalg.vector_norm(ts.net.hist_latent(prop_history) - target, dim=-1).mean()
-        ts.hist_opt.step(_grads(loss, ts.hist_opt.params), self.learning_rate)
-        return loss.detach()
+        loss = self.shard.share(torch.linalg.vector_norm(ts.net.hist_latent(prop_history) - target, dim=-1), rows)
+        *grads, loss = self.shard.all_sum([*_grads(loss, ts.hist_opt.params), loss.detach()], dtype=torch.float32)
+        ts.hist_opt.step(grads, self.learning_rate)
+        return loss
 
-    def update_distill(self, ts: MimicTrainState, batch):
+    def update_distill(self, ts: MimicTrainState, batch, rows: int | None = None):
         """One behaviour-cloning minibatch (`ppo_mimic.py:382-396`): L2 to the
         teacher's action; the history encoder's grads are zeroed, so it
-        stays as grafted."""
+        stays as grafted. `rows` as in `update_rl`."""
+        rows = len(batch["teacher_actions"]) if rows is None else rows
         student = ts.net.act({k: batch[k] for k in OBS_KEYS}, True)[0]
-        loss = torch.linalg.vector_norm(batch["teacher_actions"] - student, dim=-1).mean()
+        loss = self.shard.share(torch.linalg.vector_norm(batch["teacher_actions"] - student, dim=-1), rows)
+        *grads, loss = self.shard.all_sum([*_grads(loss, ts.opt.params), loss.detach()], dtype=torch.float32)
         frozen = {id(p) for p in ts.hist_opt.params}
-        grads = [torch.zeros_like(p) if id(p) in frozen else g
-                 for p, g in zip(ts.opt.params, _grads(loss, ts.opt.params))]
+        grads = [torch.zeros_like(p) if id(p) in frozen else g for p, g in zip(ts.opt.params, grads)]
         ts.opt.step(grads, ts.lr)
-        return loss.detach()
+        return loss
 
     # ------------------------------------------------------------------ learn
-    def _dagger_pass(self, ts, flat):
+    def _global_slices(self, T):
+        """The local rows of the `num_minibatches` consecutive slices of the
+        global flat samples, and the slices' size."""
+        samples = T * self.shard.num_envs
+        mb = samples // self.num_minibatches
+        return [self.shard.local_rows(torch.arange(i * mb, (i + 1) * mb, device=self.device))
+                for i in range(self.num_minibatches)], mb
+
+    def _dagger_pass(self, ts, flat, T):
         """`num_minibatches` consecutive DAgger minibatches (`ppo_mimic.py:315-321`)."""
-        mb = flat["priv_obs"].shape[0] // self.num_minibatches
-        return torch.stack([self.update_dagger(ts, flat["priv_obs"][i * mb:(i + 1) * mb],
-                                               flat["prop_history"][i * mb:(i + 1) * mb])
-                            for i in range(self.num_minibatches)]).mean()
+        slices, mb = self._global_slices(T)
+        return torch.stack([self.update_dagger(ts, flat["priv_obs"][idx], flat["prop_history"][idx], mb)
+                            for idx in slices]).mean()
 
     def learn(self, ts: MimicTrainState, rollout, perms=None):
         """The update phase of the iteration `rollout` came from: RL (with the
@@ -274,13 +303,12 @@ class PPOMimic:
         env_state, obs, traj, env_logs, hist_encoding = rollout
         T, N = traj["values"].shape[:2]
         log = {f"Env/{k}": v.mean() for k, v in env_logs.items()}
-        log["Train/mean_step_reward"] = traj["rewards"].sum(-1).mean()
-        mb = T * N // self.num_minibatches
+        log["Train/mean_step_reward"] = self.shard.global_mean(traj["rewards"].sum(-1))
         if self.dagger_only:
             keys = (*OBS_KEYS, "teacher_actions")
             flat = {k: traj[k].reshape(T * N, *traj[k].shape[2:]) for k in keys}
-            losses = [self.update_distill(ts, {k: v[i * mb:(i + 1) * mb] for k, v in flat.items()})
-                      for i in range(self.num_minibatches)]
+            slices, mb = self._global_slices(T)
+            losses = [self.update_distill(ts, {k: v[idx] for k, v in flat.items()}, mb) for idx in slices]
             log.update({"Loss/bc": torch.stack(losses).mean(),
                         "Loss/kl": torch.zeros((), device=self.device), "Loss/lr": ts.lr})
         else:
@@ -290,10 +318,13 @@ class PPOMimic:
             flat = {k: v.reshape(T * N, *v.shape[2:]) for k, v in traj.items()}
             flat["returns"] = returns.reshape(T * N, -1)
             flat["advantages"] = advantages.reshape(T * N)
+            samples = T * self.shard.num_envs                 # over every rank
             if perms is None:
-                perms = [torch.randperm(T * N, generator=self.gen, device=self.device)
+                perms = [torch.randperm(samples, generator=self.perm_gen, device=self.device)
                          for _ in range(self.num_epochs)]
-            metrics = [self.update_rl(ts, {k: v[perm[i * mb:(i + 1) * mb]] for k, v in flat.items()})
+            mb = samples // self.num_minibatches
+            metrics = [self.update_rl(ts, {k: v[self.shard.local_rows(perm[i * mb:(i + 1) * mb])]
+                                           for k, v in flat.items()}, mb)
                        for perm in perms for i in range(self.num_minibatches)]
             mean = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
             log.update({"Loss/surrogate": mean["surrogate"], "Loss/value": mean["value_loss"],
@@ -301,7 +332,7 @@ class PPOMimic:
             if self.use_moe:
                 log["Loss/load_balancing"] = mean["load_balancing"]
             if hist_encoding:
-                log["Loss/hist_latent"] = self._dagger_pass(ts, flat)
+                log["Loss/hist_latent"] = self._dagger_pass(ts, flat, T)
         ts.env_state, ts.obs, ts.iteration = env_state, obs, ts.iteration + 1
         return ts, log
 
@@ -312,8 +343,8 @@ class PPOMimic:
         T, N = traj["values"].shape[:2]
         flat = {k: traj[k].reshape(T * N, -1) for k in ("priv_obs", "prop_history")}
         log = {f"Env/{k}": v.mean() for k, v in env_logs.items()}
-        log.update({"Loss/hist_latent": self._dagger_pass(ts, flat),
-                    "Train/mean_step_reward": traj["rewards"].sum(-1).mean(),
+        log.update({"Loss/hist_latent": self._dagger_pass(ts, flat, T),
+                    "Train/mean_step_reward": self.shard.global_mean(traj["rewards"].sum(-1)),
                     "Loss/kl": torch.zeros((), device=self.device), "Loss/lr": ts.lr})
         ts.env_state, ts.obs, ts.iteration = env_state, obs, ts.iteration + 1
         return ts, log

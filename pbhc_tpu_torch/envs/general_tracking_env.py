@@ -23,8 +23,8 @@ from pbhc_tpu_torch.motion.motion_lib import get_motion_state
 
 
 class GeneralTrackingEnv(MotionTrackingEnv):
-    def __init__(self, config, num_envs: int, device="cuda", seed: int = 0):
-        super().__init__(config, num_envs, device=device, seed=seed)
+    def __init__(self, config, num_envs: int, device="cuda", seed: int = 0, shard=None):
+        super().__init__(config, num_envs, device=device, seed=seed, shard=shard)
         rcfg = config.robot
         names_ext = list(self.sim_model.body_names) + [e["joint_name"] for e in rcfg.motion.extend_config]
         self.key_body_id = np.asarray([names_ext.index(n) for n in rcfg.key_bodies])

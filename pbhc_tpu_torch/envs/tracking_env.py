@@ -37,6 +37,7 @@ from pbhc_tpu_torch.envs.terrain import Terrain, TerrainConfig
 from pbhc_tpu_torch.maths import rotations as rot
 from pbhc_tpu_torch.model.g1 import load_g1_motion_model, load_g1_sim_model
 from pbhc_tpu_torch.motion.motion_lib import MotionLib, get_motion_state, sample_time
+from pbhc_tpu_torch.parallel.mesh import EnvShard
 from pbhc_tpu_torch.sim.engine import Engine, EngineOptions, SimState, tree_map
 from pbhc_tpu_torch.sim.engine_lanes import LanesEngine
 from pbhc_tpu_torch.utils.noise_tool import ou_step
@@ -119,12 +120,17 @@ def _env_fields(fn, n, obj, *rest):
 class MotionTrackingEnv:
     """Config-derived constants + step/reset functions (`tracking_env.py:99`)."""
 
-    def __init__(self, config, num_envs: int, device="cuda", seed: int = 0):
+    def __init__(self, config, num_envs: int, device="cuda", seed: int = 0, shard: EnvShard | None = None):
         self.config = config
         self.num_envs = num_envs
         self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed))
+        # this process's share of a data-parallel run's env axis (`parallel/mesh.py`):
+        # the step's replicated scalars are reduced over every rank's envs
+        self.shard = EnvShard(num_envs) if shard is None else shard
+        if self.shard.local_envs != num_envs:
+            raise ValueError(f"num_envs={num_envs} is not the shard's {self.shard.local_envs} local envs")
+        # per-env draws from a per-rank generator, draws shared by every env from one seeded alike
+        self.gen, self.shared_gen = self.shard.generators(seed, self.device)
         rcfg = config.robot
         ecfg = config.env.config
         sim_cfg = config.simulator.config
@@ -185,7 +191,9 @@ class MotionTrackingEnv:
             self.engine.set_terrain(self.terrain.height_field, self.terrain.cfg.horizontal_scale)
             self.terrain_origins = torch.as_tensor(self.terrain.env_origins, device=self.device)
             nc, nr = self.terrain.cfg.num_cols, self.terrain.cfg.num_rows
-            self.terrain_types = torch.arange(num_envs, device=self.device) * nc // num_envs
+            # the column of each env by its index on the global env axis
+            n_all = self.shard.num_envs
+            self.terrain_types = (torch.arange(num_envs, device=self.device) + self.shard.offset) * nc // n_all
             self.terrain_curriculum = bool(ter.get("curriculum", False))
             self.max_init_terrain_level = int(ter.get("max_init_terrain_level", nr - 1)) \
                 if self.terrain_curriculum else nr - 1
@@ -264,6 +272,7 @@ class MotionTrackingEnv:
         self.num_rew_fn = (len(self.reward_names) + 1) if self.use_vec_reward else 1
         self.sigma_terms = list(config.rewards.reward_tracking_sigma.keys())
         self.sigma_init = f32([float(config.rewards.reward_tracking_sigma[t]) for t in self.sigma_terms])
+        self.adaptive_sigma = bool(config.rewards.adaptive_tracking_sigma.enable)
 
         self.obs_dims = {k: int(v) for k, v in config.obs.obs_dims.items()}
         self.history_spec = {group: {k: int(v) for k, v in sorted(dict(spec).items())}
@@ -612,7 +621,7 @@ class MotionTrackingEnv:
 
     def _gate(self, prob) -> torch.Tensor:
         """One Bernoulli draw with probability `prob`, shared by every env."""
-        return torch.rand((), generator=self.gen, device=self.device) < float(prob)
+        return torch.rand((), generator=self.shared_gen, device=self.device) < float(prob)
 
     def _sdc_pre_fn(self, state: EnvState, sim: SimState):
         """Soft dynamic correction (`tracking_env.py:791-858`): before each
@@ -776,16 +785,29 @@ class MotionTrackingEnv:
             body_vel=body_vel, ref_contact_mask=mres["contact_mask"], reset_buf=reset_buf,
             time_out=time_out, base_lin_vel=base_lin_vel, mres=mres, diffs=diffs,
             body_pos=body_pos, body_quat=body_quat, body_ang_vel=body_ang_vel, **diffs)
-        rew_vec, sigma_values, sigma_ema, feet_air_time, errors = self._compute_rewards(state, rew_state)
+        rew_vec, feet_air_time, errors = self._compute_rewards(state, rew_state)
 
-        n_reset = reset_buf.sum()
-        avg_epl = self._update_avg_episode_length(state, episode_length, reset_buf, n_reset)
-        motion_fail_ema = state.motion_fail_ema
+        # the replicated scalars' reductions over the env axis, global over
+        # every rank's envs by one packed all-reduce (`parallel/mesh.py`)
         asc = ecfg.get("adaptive_motion_sampling")
-        if self.motion_lib.num_unique > 1 and asc and bool(asc.get("enabled", False)):
-            M, g = self.motion_lib.num_unique, float(asc.get("gamma", 0.1))
-            resets = torch.zeros(M, device=dev).index_add_(0, state.motion_ids, reset_buf.float())
-            fails = torch.zeros(M, device=dev).index_add_(0, state.motion_ids, (reset_buf & ~time_out).float())
+        adaptive = self.motion_lib.num_unique > 1 and asc and bool(asc.get("enabled", False))
+        sigma_errs = [errors[t].mean() / self.shard.world for t in self.sigma_terms
+                      if self.adaptive_sigma and t in errors]
+        sums = [reset_buf.sum(), (episode_length * reset_buf).sum(), *sigma_errs]
+        if adaptive:
+            M = self.motion_lib.num_unique
+            sums.append(torch.zeros(M, device=dev).index_add_(0, state.motion_ids, reset_buf.float()))
+            sums.append(torch.zeros(M, device=dev).index_add_(0, state.motion_ids,
+                                                              (reset_buf & ~time_out).float()))
+        sums = self.shard.all_sum(sums)
+        n_reset, epl_sum = sums[:2]
+        sigma_values, sigma_ema = self._update_sigmas(state, dict(zip(
+            [t for t in self.sigma_terms if self.adaptive_sigma and t in errors], sums[2:2 + len(sigma_errs)])))
+        avg_epl = self._update_avg_episode_length(state, epl_sum, n_reset)
+        motion_fail_ema = state.motion_fail_ema
+        if adaptive:
+            g = float(asc.get("gamma", 0.1))
+            resets, fails = sums[-2:]
             rate = fails / torch.clamp(resets, min=1.0)
             motion_fail_ema = torch.where(resets > 0, (1.0 - g) * motion_fail_ema + g * rate, motion_fail_ema)
         state2 = dataclasses.replace(
@@ -817,8 +839,8 @@ class MotionTrackingEnv:
 
     # ---------------------------------------------------------------- rewards
     def _compute_rewards(self, state: EnvState, rs):
-        """Config-ordered [N,R] reward vector, penalty curriculum, adaptive
-        sigma (`tracking_env.py:1066`)."""
+        """Config-ordered [N,R] reward vector with the penalty curriculum
+        (`tracking_env.py:1066`); the feet air time and the tracking errors."""
         rews, errors, feet_air_time = self._reward_terms(state, rs)
         curriculum = bool(self.config.rewards.reward_penalty_curriculum)
         cols = []
@@ -827,24 +849,28 @@ class MotionTrackingEnv:
             cols.append(rew * state.reward_penalty_scale if (curriculum and pen) else rew)
         cols.append((rs["reset_buf"] & ~rs["time_out"]).to(torch.float32) * self.termination_scale)
         rew_vec = torch.nan_to_num(torch.stack(cols, dim=-1), nan=0.0, posinf=0.0, neginf=0.0)
+        return rew_vec, feet_air_time, errors
 
+    def _update_sigmas(self, state: EnvState, err_means):
+        """The adaptive tracking sigmas (`tracking_env.py:1085-1100`): each
+        term's EMA of its error's mean over the envs, `err_means` {term: 0-d}."""
         sigma_values, sigma_ema = state.sigma_values, state.sigma_ema
+        if not self.adaptive_sigma:
+            return sigma_values, sigma_ema
         ats = self.config.rewards.adaptive_tracking_sigma
-        if bool(ats.enable):
-            alpha = float(ats.alpha)
-            mean_type = str(ats.get("type", "origin")) == "mean"
-            new_emas, new_sigs = [], []
-            for i, t in enumerate(self.sigma_terms):
-                if t in errors:
-                    ema = sigma_ema[i] * (1 - alpha) + errors[t].mean() * alpha
-                    sig = torch.minimum(ema, sigma_values[i])
-                    new_emas.append(ema)
-                    new_sigs.append((sig + ema) / 2 if mean_type else sig)
-                else:
-                    new_emas.append(sigma_ema[i])
-                    new_sigs.append(sigma_values[i])
-            sigma_ema, sigma_values = torch.stack(new_emas), torch.stack(new_sigs)
-        return rew_vec, sigma_values, sigma_ema, feet_air_time, errors
+        alpha = float(ats.alpha)
+        mean_type = str(ats.get("type", "origin")) == "mean"
+        new_emas, new_sigs = [], []
+        for i, t in enumerate(self.sigma_terms):
+            if t in err_means:
+                ema = sigma_ema[i] * (1 - alpha) + err_means[t] * alpha
+                sig = torch.minimum(ema, sigma_values[i])
+                new_emas.append(ema)
+                new_sigs.append((sig + ema) / 2 if mean_type else sig)
+            else:
+                new_emas.append(sigma_ema[i])
+                new_sigs.append(sigma_values[i])
+        return torch.stack(new_sigs), torch.stack(new_emas)
 
     def _reward_terms(self, state: EnvState, rs):
         """Reward terms, name -> [N] (`tracking_env.py:1105`)."""
@@ -928,11 +954,12 @@ class MotionTrackingEnv:
         return rews, errors, feet_air_time
 
     # ---------------------------------------------------------------- curricula
-    def _update_avg_episode_length(self, state, episode_length, reset_buf, n_reset):
-        """`tracking_env.py:1195`."""
+    def _update_avg_episode_length(self, state, epl_sum, n_reset):
+        """`tracking_env.py:1195`: `epl_sum` the summed length of the
+        episodes that end now, `n_reset` their number."""
         n0 = float(self.config.rewards.num_compute_average_epl)
         n = n_reset.to(torch.float32)
-        cur = torch.where(n > 0, (episode_length * reset_buf).sum() / torch.clamp(n, min=1), 0.0)
+        cur = torch.where(n > 0, epl_sum / torch.clamp(n, min=1), 0.0)
         new = state.average_episode_length * (1 - n / n0) + cur * (n / n0)
         return torch.where(n > 0, new, state.average_episode_length)
 
@@ -1093,27 +1120,62 @@ class MotionTrackingEnv:
 
     # ------------------------------------------------------------------- logs
     def _build_log(self, term, reset_buf, rew_vec, errors, state):
-        """Per-step scalars (`tracking_env.py:1418`); 0-d tensors, no host sync."""
-        log = {}
-        denom = reset_buf.to(torch.float32).mean() + 1e-15
-        for k, v in term.items():
-            log[f"terminate_by_{k}"] = v.to(torch.float32).mean() / denom
-        means = rew_vec.mean(0)
-        for i, name in enumerate(self.reward_names):
-            log[f"rew_{name}"] = means[i]
-        log["rew_termination"] = means[-1]
-        log["average_episode_length"] = state.average_episode_length
-        log["penalty_scale"] = state.reward_penalty_scale
-        log["motion_far_threshold"] = state.motion_far_threshold
-        log["episode_length_mean"] = state.episode_length.to(torch.float32).mean()
+        """Per-step scalars (`tracking_env.py:1418`); 0-d tensors, no host sync.
+        Under data parallelism the env means and the terrain maximum stay this
+        rank's (`_local_means`, `_local_level_max`): `global_logs` makes them
+        global once per rollout."""
+        lvl = state.terrain_level.to(torch.float32) if self.terrain is not None else None
+        means = torch.cat([x.to(torch.float32).mean(0).reshape(-1) for x in
+                           (reset_buf, *term.values(), rew_vec, state.episode_length,
+                            *([lvl] if lvl is not None else []))])
+        log = {"average_episode_length": state.average_episode_length,
+               "penalty_scale": state.reward_penalty_scale,
+               "motion_far_threshold": state.motion_far_threshold}
         if self.motion_lib.num_unique > 1:
             log["motion_fail_ema_mean"] = state.motion_fail_ema.mean()
             log["motion_fail_ema_max"] = state.motion_fail_ema.max()
         for i, t in enumerate(self.sigma_terms):
             log[f"adp_sigma_{t}"] = state.sigma_values[i]
-        if self.terrain is not None:
+        level_max = lvl.max() if lvl is not None else None
+        self._term_names = tuple(term)          # the same at every step of an env
+        if self.shard.distributed:
+            log["_local_means"] = means
+            if level_max is not None:
+                log["_local_level_max"] = level_max
+            return log
+        return {**log, **self._env_mean_logs(means, level_max)}
+
+    def _env_mean_logs(self, means, level_max):
+        """The logs of the env means `means` ([..., k]: resets, terminations,
+        reward columns, episode length, terrain level) and the terrain
+        maximum; `...` is a step axis or none."""
+        log = {}
+        terms = self._term_names
+        denom = means[..., 0] + 1e-15
+        for i, k in enumerate(terms):
+            log[f"terminate_by_{k}"] = means[..., 1 + i] / denom
+        r0 = 1 + len(terms)
+        for i, name in enumerate(self.reward_names):
+            log[f"rew_{name}"] = means[..., r0 + i]
+        r1 = r0 + len(self.reward_names)
+        log["rew_termination"] = means[..., r1]
+        log["episode_length_mean"] = means[..., r1 + 1]
+        if level_max is not None:
             # the curriculum's level distribution (`tracking_env.py:1435-1440`)
-            lvl = state.terrain_level.to(torch.float32)
-            log["terrain_level_mean"] = lvl.mean()
-            log["terrain_level_max"] = lvl.max()
+            log["terrain_level_mean"] = means[..., r1 + 2]
+            log["terrain_level_max"] = level_max
         return log
+
+    def global_logs(self, logs):
+        """A rollout's step logs ({key: [T, ...]}) with this rank's env means
+        and terrain maxima made global over every rank's envs: one all-reduce
+        of the [T, k] means and one of the [T] maxima; `logs` itself in a
+        single process."""
+        if not self.shard.distributed:
+            return logs
+        logs = dict(logs)
+        (means,) = self.shard.all_sum([logs.pop("_local_means") / self.shard.world])
+        level_max = logs.pop("_local_level_max", None)
+        if level_max is not None:
+            (level_max,) = self.shard.all_max([level_max])
+        return {**logs, **self._env_mean_logs(means, level_max)}

@@ -2,8 +2,8 @@
 
 Usage:
     python -m pbhc_tpu_torch.eval_agent checkpoint=<run>/ckpt/model_<it>.pkl \\
-        [num_envs=1] [callbacks=plot,force,openloop] [dashboard=true] [sim2sim=true] [device=cpu]
-        [a.b.c=value]
+        [num_envs=1] [callbacks=plot,force,openloop] [dashboard=true] [sim2sim=true]
+        [save_motion=true] [device=cpu] [a.b.c=value]
 
 Reads the config of the run that wrote the checkpoint (its `config.json`,
 else the committed snapshot: `config/loader.py::snapshot_for_checkpoint`),
@@ -19,8 +19,10 @@ must be installed) and adds its families under `sim2sim`.
 The reference is fetched as `rollout_jax` fetches it, without the env's
 terrain origin shift (`pbhc_tpu/eval_agent.py:68`), so on a heightfield run
 the global family `E_gmpbpe` includes the tile offset (ROADMAP queue 3).
-`save_motion=true` (a joblib motion dump, ROADMAP queue 1 item 14) is not
-ported and raises.
+`save_motion=true` (or `save_motion` in the run's config) also writes env
+0's rollout as a training-format motion clip, `<run>/motion_model_<it>.pkl`
+(`save_rollout_motion`: the JAX package's schema, written by
+`motion/package.dump`, which `joblib.load` reads).
 """
 from __future__ import annotations
 
@@ -28,7 +30,9 @@ import json
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
+from scipy.spatial.transform import Rotation as sRot
 
 from pbhc_tpu_torch.agents.networks import GaussianActor, PhaseAwareActor
 from pbhc_tpu_torch.deploy.export import export_policy
@@ -37,6 +41,7 @@ from pbhc_tpu_torch.eval.callbacks import build_callbacks
 from pbhc_tpu_torch.eval.dashboard import DashboardLogger
 from pbhc_tpu_torch.eval.metrics import eval_accuracy, eval_smoothness
 from pbhc_tpu_torch.motion.motion_lib import get_motion_state
+from pbhc_tpu_torch.motion.package import dump
 from pbhc_tpu_torch.utils.checkpoint import load_checkpoint_payload
 
 TRAJ_KEYS = ("root_pos", "root_rot", "dof_pos", "body_pos", "body_rot", "contact_mask", "dof_vel",
@@ -118,9 +123,8 @@ def main(argv=None):
         raise NotImplementedError("eval_agent exports and scores MHPPO actors, as the JAX CLI does; export a "
                                   "PPOMimic student with `python -m pbhc_tpu_torch.deploy.export student <ckpt>`")
     # a run trained with opt=record carries save_motion in its config
-    if (save_motion_arg.lower() == "true" if save_motion_arg is not None else bool(cfg.get("save_motion"))):
-        raise NotImplementedError("save_motion: the joblib motion writer is not ported yet "
-                                  "(ROADMAP queue 1 item 14)")
+    save_motion = (save_motion_arg.lower() == "true" if save_motion_arg is not None
+                   else bool(cfg.get("save_motion")))
     run_dir = ckpt_path.parent.parent
     # the checkpoint's arrays as stored, so that the .npz holds pbhc_tpu's bytes
     npz_path = export_policy(actor, load_checkpoint_payload(ckpt_path)["actor_params"], env,
@@ -154,12 +158,45 @@ def main(argv=None):
               f"E_mpjpe={s2s['accuracy']['E_mpjpe']:.1f}")
         results["sim2sim_final_z"] = s2s["final_z"]
         results["sim2sim"] = s2s
+    if save_motion:
+        # the rollout in the training-data schema (`eval_agent.py:190-193`;
+        # reference motion_tracking.py:140-169,860-940 `save_motion`)
+        save_rollout_motion(env, traj, run_dir / f"motion_{ckpt_path.stem}.pkl")
     out = run_dir / f"eval_{ckpt_path.stem}.json"
     out.write_text(json.dumps(results, indent=1))
     print(f"[eval] wrote {out}")
     if dash is not None:
         dash.stop()
     return results
+
+
+def save_rollout_motion(env, traj, path):
+    """Write a rollout (`rollout`'s trajectory) as a training-format motion
+    pkl `{"rollout": clip}` (`pbhc_tpu/eval_agent.py:201-230`: the schema of
+    reference motion_lib_base.py:421-441 plus the rollout's extras)."""
+    T = len(traj["dof_pos"])
+    axes = np.asarray(env.motion_model.dof_axis)
+    root_aa = sRot.from_quat(traj["root_rot"]).as_rotvec()
+    pose_aa = np.concatenate([
+        root_aa[:, None, :],
+        traj["dof_pos"][:, :, None] * axes[None],
+        np.zeros((T, env.num_extend, 3)),
+    ], axis=1).astype(np.float32)
+    clip = {
+        "root_trans_offset": traj["root_pos"].astype(np.float32),
+        "root_rot": traj["root_rot"].astype(np.float32),
+        "dof": traj["dof_pos"].astype(np.float32),
+        "pose_aa": pose_aa,
+        "fps": int(round(1.0 / env.dt)),
+        "contact_mask": traj["contact_mask"].astype(np.float64),
+        "dof_vel": traj["dof_vel"].astype(np.float32),
+        "root_lin_vel": traj["root_lin_vel"].astype(np.float32),
+        "root_ang_vel": traj["root_ang_vel"].astype(np.float32),
+        "action": traj["action"].astype(np.float32),
+    }
+    dump({"rollout": clip}, path)
+    print(f"[eval] saved rollout motion -> {path}")
+    return path
 
 
 if __name__ == "__main__":

@@ -35,8 +35,19 @@ starts a fresh optimizer); `auto_load_latest=true` picks the newest
 checkpoint of this experiment under `<base_dir>/<project_name>`, else the
 newest mirror; `total_iterations=<n>` runs up to iteration n in all.
 
-Not ported: TensorBoard, wandb, the hung-device watchdog (a remote-TPU
-guard) and multi-device training.
+Env-axis data parallelism (`parallel/mesh.py`; JAX's auto-sharding,
+`pbhc_tpu/train.py:230-239`): under a process group that `torchrun` started
+(`torchrun --nproc_per_node=<gpus> -m pbhc_tpu_torch.train ...`) or a caller
+initialised, each rank trains `num_envs / world` envs on its own card (ranks
+beyond the card count share cards); with more than one GPU visible, no group
+and `multichip` true (the default), the CLI spawns one rank per GPU itself.
+The ranks start from rank 0's weights, reduce every env and sample mean over
+all of them, and check after each iteration that their replicated state is
+bit-identical. Rank 0 alone writes the run directory and prints; its
+checkpoints have the one-rank layout. `fps` counts every rank's env-steps.
+
+Not ported: TensorBoard, wandb and the hung-device watchdog (a remote-TPU
+guard).
 """
 from __future__ import annotations
 
@@ -54,6 +65,8 @@ from pbhc_tpu_torch.agents.mh_ppo import MHPPO
 from pbhc_tpu_torch.agents.ppo_mimic import PPOMimic, add_teacher_obs_groups, load_teacher
 from pbhc_tpu_torch.config.loader import compose, parse_cli, snapshot_for_checkpoint, to_yaml
 from pbhc_tpu_torch.eval.batch_eval import ENV_TARGET, ENVS, GENERAL_ENV_TARGET, set_precision
+from pbhc_tpu_torch.parallel.mesh import (EnvShard, backend_for, check_replicas, make_mesh, rank_device,
+                                          run_ranks, shard_train_state)
 from pbhc_tpu_torch.utils.checkpoint import (latest_checkpoint, load_checkpoint_payload,
                                              restore_train_state, save_artifact, save_checkpoint)
 
@@ -69,9 +82,10 @@ def load_teacher_config(ckpt_path):
     return snapshot_for_checkpoint(ckpt_path)
 
 
-def build(cfg):
+def build(cfg, shard: EnvShard | None = None):
     """(env, algo, train state) for a composed config, on `cfg.device`
-    (default cuda), in float32 with TF32 off. A distillation config gains the
+    (default cuda), in float32 with TF32 off; with a `shard` of a data-parallel
+    run, the rank's envs on the rank's card. A distillation config gains the
     teacher's obs groups (in place) and its frozen teacher."""
     set_precision()
     algo_cls = ALGOS.get((cfg.env.target, cfg.algo.target))
@@ -80,13 +94,16 @@ def build(cfg):
     if cfg.get("use_wandb"):
         raise NotImplementedError("use_wandb: wandb logging is not ported")
     seed, device = int(cfg.seed), cfg.get("device", "cuda")
+    shard = EnvShard(int(cfg.num_envs)) if shard is None else shard
+    if shard.distributed:
+        device = rank_device(device, shard.rank)
     teacher_path = cfg.algo.config.get("teacher_model_path")
     if teacher_path and algo_cls is not PPOMimic:
         raise ValueError("teacher_model_path is a PPOMimic option")
     teacher_cfg = load_teacher_config(teacher_path) if teacher_path else None
     if teacher_cfg is not None:
         add_teacher_obs_groups(cfg, teacher_cfg)
-    env = ENVS[cfg.env.target](cfg, int(cfg.num_envs), device=device, seed=seed)
+    env = ENVS[cfg.env.target](cfg, shard.local_envs, device=device, seed=seed, shard=shard)
     if algo_cls is MHPPO:
         algo = MHPPO(cfg, env, seed=seed)
     else:
@@ -144,26 +161,53 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _resume(cfg, algo, ts, art_dir):
+def _resume(cfg, algo, ts, art_dir, say=print):
     ckpt_path = cfg.get("checkpoint")
     if not ckpt_path and cfg.get("auto_load_latest"):
         ckpt_path = (latest_checkpoint(Path(cfg.base_dir) / cfg.project_name, str(cfg.experiment_name))
                      or latest_checkpoint(art_dir))
         if ckpt_path:
-            print(f"[train] auto_load_latest -> {ckpt_path}")
+            say(f"[train] auto_load_latest -> {ckpt_path}")
     if ckpt_path:
         payload = load_checkpoint_payload(ckpt_path)
         restore_train_state(ts, payload, bool(cfg.algo.config.get("load_optimizer", True)))
-        print(f"[train] resumed from {ckpt_path} at iteration {ts.iteration}")
+        say(f"[train] resumed from {ckpt_path} at iteration {ts.iteration}")
     return ts
+
+
+def spawn_world(cfg) -> int:
+    """How many ranks the CLI spawns itself (`pbhc_tpu/train.py:230-232`):
+    one per visible GPU when more than one is visible, the run is on `cuda`
+    and `multichip` is true, unless a process group is there to join
+    (a caller's, or `torchrun`'s); else 0."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        return 0
+    on_cuda = torch.device(cfg.get("device", "cuda")).type == "cuda"
+    n = torch.cuda.device_count() if on_cuda else 0
+    return n if n > 1 and bool(cfg.get("multichip", True)) else 0
+
+
+def _rank_main(argv):
+    return main(argv)[2]
 
 
 def main(argv=None):
     """Returns the algorithm, the final train state and the log of every
-    printed iteration (with its fps and its rollout and update seconds)."""
+    printed iteration (with its fps and its rollout and update seconds). When
+    it spawns the ranks itself, returns (None, None, rank 0's log)."""
     argv = sys.argv[1:] if argv is None else argv
     sels, ovs = parse_cli(argv)
     cfg = compose(sels, ovs)
+    world = spawn_world(cfg)
+    if world:
+        print(f"[train] {world} GPUs visible: spawning one rank each (env-axis data parallelism)")
+        return None, None, run_ranks(_rank_main, world, (argv,), backend=backend_for("cuda", world),
+                                     timeout=None)[0]
+    shard = make_mesh(int(cfg.num_envs), cfg.get("device", "cuda"))
+    if shard.rank != 0:
+        return _run(cfg, shard, None, None, None)
 
     timestamp = time.strftime("%Y%m%d_%H%M%S")
     exp_dir = (Path(cfg.base_dir) / cfg.project_name
@@ -173,37 +217,46 @@ def main(argv=None):
     (exp_dir / "config.json").write_text(config_json)
     (exp_dir / "config.yaml").write_text(config_yaml)
     with _tee(exp_dir / "train.log"):
-        return _run(cfg, exp_dir, config_json, config_yaml)
+        return _run(cfg, shard, exp_dir, config_json, config_yaml)
 
 
-def _run(cfg, exp_dir, config_json, config_yaml):
-    print(f"[train] experiment dir: {exp_dir}")
-    env, algo, ts = build(cfg)
+def _run(cfg, shard, exp_dir, config_json, config_yaml):
+    """The training loop; `exp_dir` None on the ranks after the first, which
+    write and print nothing."""
+    say = print if exp_dir is not None else (lambda *a, **k: None)
+    say(f"[train] experiment dir: {exp_dir}")
+    env, algo, ts = build(cfg, shard)
     dev = env.device
-    print(f"[train] device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else dev}")
+    say(f"[train] device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else dev}")
     art_dir = resolve_artifact_dir(cfg)
-    (art_dir / "ckpt").mkdir(parents=True, exist_ok=True)
-    (art_dir / "config.json").write_text(config_json)
-    (art_dir / "config.yaml").write_text(config_yaml)
-    ts = _resume(cfg, algo, ts, art_dir)
+    if exp_dir is not None:
+        (art_dir / "ckpt").mkdir(parents=True, exist_ok=True)
+        (art_dir / "config.json").write_text(config_json)
+        (art_dir / "config.yaml").write_text(config_yaml)
+    ts = _resume(cfg, algo, ts, art_dir, say)
+    if shard.distributed:
+        ts = shard_train_state(ts, shard)
+        say(f"[train] env-axis data parallelism: {shard.world} ranks x {shard.local_envs} envs "
+            f"({shard.backend})")
 
     num_iters = int(cfg.algo.config.num_learning_iterations)
     if cfg.get("total_iterations"):   # cumulative across resumes
         num_iters = max(0, int(cfg.total_iterations) - ts.iteration)
-        print(f"[train] total_iterations={cfg.total_iterations}: {num_iters} remaining")
+        say(f"[train] total_iterations={cfg.total_iterations}: {num_iters} remaining")
     save_interval = int(cfg.algo.config.save_interval)
     log_interval = max(1, int(cfg.algo.config.get("logging_interval", 25)) // 5)
-    steps_per_iter = env.num_envs * algo.num_steps
-    ckpt_dir = exp_dir / "ckpt"
+    steps_per_iter = shard.num_envs * algo.num_steps     # every rank's env-steps
+    ckpt_dir = exp_dir / "ckpt" if exp_dir is not None else None
     logs = []
 
     def save():
-        print(f"[train] saved {save_checkpoint(ckpt_dir, ts)}")
-        save_artifact(art_dir, ts)
+        if exp_dir is not None:
+            say(f"[train] saved {save_checkpoint(ckpt_dir, ts)}")
+            save_artifact(art_dir, ts)
 
     t_start = time.time()
     last_log_t, last_log_it = t_start, 0
-    with open(exp_dir / "scalars.jsonl", "a") as scalars:
+    with open(exp_dir / "scalars.jsonl", "a") if exp_dir is not None else contextlib.nullcontext() as scalars:
         for it in range(num_iters):
             t0 = time.time()
             if it == 2:
@@ -219,9 +272,14 @@ def _run(cfg, exp_dir, config_json, config_yaml):
                 _sync(dev)
                 t_mid = time.time()
             ts, log = algo.learn(ts, rollout)
+            save_now = (it + 1) % save_interval == 0 and it + 1 < num_iters
+            # the ranks' weights, moments and lr must stay bit-identical: checked
+            # where the loop synchronises anyway (logs, saves, the end)
+            checksum = (check_replicas(ts, shard) if shard.distributed
+                        and (log_now or save_now or it + 1 == num_iters) else None)
             if it == 0:
                 _sync(dev)
-                print(f"[train] first iteration (incl. kernel builds): {time.time() - t0:.1f}s")
+                say(f"[train] first iteration (incl. kernel builds): {time.time() - t0:.1f}s")
             if log_now:
                 log = {k: float(v) for k, v in log.items()}      # waits for the whole window
                 now = time.time()
@@ -229,20 +287,21 @@ def _run(cfg, exp_dir, config_json, config_yaml):
                 fps = steps_per_iter * window_iters / (now - last_log_t)
                 last_log_t, last_log_it = now, it + 1
                 logs.append(dict(log, iteration=ts.iteration, fps=fps, rollout_s=t_mid - t0,
-                                 update_s=now - t_mid))
-                scalars.write(json.dumps({"iteration": ts.iteration, **log, "Perf/total_fps": fps}) + "\n")
-                scalars.flush()
+                                 update_s=now - t_mid, **({} if checksum is None else {"replica_checksum": checksum})))
+                if scalars is not None:
+                    scalars.write(json.dumps({"iteration": ts.iteration, **log, "Perf/total_fps": fps}) + "\n")
+                    scalars.flush()
                 terr = (f" terrain_level_mean={log['Env/terrain_level_mean']:.2f}"
                         f"/max={log['Env/terrain_level_max']:.0f}"
                         if "Env/terrain_level_mean" in log else "")
-                print(f"[it {it + 1}/{num_iters}] rew/step={log['Train/mean_step_reward']:.4f} "
-                      f"epl={log['Env/episode_length_mean']:.1f} kl={log['Loss/kl']:.4f} "
-                      f"lr={log['Loss/lr']:.2e} fps={fps:,.0f}{terr} "
-                      f"rollout/update={t_mid - t0:.2f}/{now - t_mid:.2f}s", flush=True)
-            if (it + 1) % save_interval == 0 and it + 1 < num_iters:
+                say(f"[it {it + 1}/{num_iters}] rew/step={log['Train/mean_step_reward']:.4f} "
+                    f"epl={log['Env/episode_length_mean']:.1f} kl={log['Loss/kl']:.4f} "
+                    f"lr={log['Loss/lr']:.2e} fps={fps:,.0f}{terr} "
+                    f"rollout/update={t_mid - t0:.2f}/{now - t_mid:.2f}s", flush=True)
+            if save_now:
                 save()
     _sync(dev)
-    print(f"[train] done in {time.time() - t_start:.0f}s")
+    say(f"[train] done in {time.time() - t_start:.0f}s")
     save()
     return algo, ts, logs
 

@@ -211,8 +211,8 @@ def test_eval_agent_end_to_end_matches_jax(tmp_path):
     jckpt, motion = _short_run(tmp_path, "jax")
     tckpt, _ = _short_run(tmp_path, "port")
     jmotion = tmotion = motion            # one clip file: the exports record its path
-    want = jax_agent.main([f"checkpoint={jckpt}", jmotion, *OFF])
-    got = eval_agent.main([f"checkpoint={tckpt}", tmotion, "device=cpu", *OFF])
+    want = jax_agent.main([f"checkpoint={jckpt}", jmotion, "save_motion=true", *OFF])
+    got = eval_agent.main([f"checkpoint={tckpt}", tmotion, "save_motion=true", "device=cpu", *OFF])
     assert got["completion_ratio"] == want["completion_ratio"] == 1.0
     _close_families(got["accuracy"], want["accuracy"])
     _close_families(got["smoothness"], want["smoothness"])
@@ -220,8 +220,20 @@ def test_eval_agent_end_to_end_matches_jax(tmp_path):
     for suffix in (".npz", ".onnx"):
         a = (jckpt.parent.parent / "exported" / f"model_10500{suffix}").read_bytes()
         assert (tckpt.parent.parent / "exported" / f"model_10500{suffix}").read_bytes() == a, suffix
-    with pytest.raises(NotImplementedError, match="item 14"):
-        eval_agent.main([f"checkpoint={tckpt}", tmotion, "save_motion=true", "device=cpu"])
+    # save_motion: the rollout as a motion clip in the JAX package's schema
+    # (`pbhc_tpu/eval_agent.py:215-227`), which `joblib.load` reads; its
+    # values are the rollout's, held as `_compare_rollouts` holds them
+    import joblib
+
+    jclip = joblib.load(jckpt.parent.parent / "motion_model_10500.pkl")["rollout"]
+    tclip = joblib.load(tckpt.parent.parent / "motion_model_10500.pkl")["rollout"]
+    assert list(tclip) == list(jclip) and tclip["fps"] == jclip["fps"] == 50
+    tol = {"root_trans_offset": SIM_TOL["root_pos"], "root_rot": SIM_TOL["root_quat"], "dof": SIM_TOL["dof_pos"],
+           "pose_aa": 2 * SIM_TOL["root_quat"], "contact_mask": 0.0, "dof_vel": SIM_TOL["dof_vel"],
+           "root_lin_vel": SIM_TOL["root_lin_vel"], "root_ang_vel": SIM_TOL["root_ang_vel"], "action": 2e-3}
+    for k, v in tol.items():
+        assert tclip[k].shape == jclip[k].shape and tclip[k].dtype == jclip[k].dtype, k
+        np.testing.assert_allclose(tclip[k], jclip[k], atol=v, err_msg=k)
 
 
 def test_sample_episodes_matches_jax(tmp_path):

@@ -1,7 +1,8 @@
 """The port runs where only torch, numpy, scipy and the standard library are.
 
-The machine with the card has no JAX, PyYAML, joblib, lxml, MuJoCo or
-TensorBoard. A subprocess that blocks those modules (and `pbhc_tpu`) imports
+The machine with the card has no JAX, PyYAML, joblib, lxml, MuJoCo,
+TensorBoard, matplotlib or rerun. A subprocess that blocks those modules
+(and `pbhc_tpu`) imports
 every module of `pbhc_tpu_torch` and `chip_smoke`, builds the side-kick env
 and actor on the CPU at 128 envs from the config snapshot and the checkpoint,
 drives a few control steps of the serving loop, does the same for the
@@ -21,11 +22,15 @@ runs them on the native executor (`StudentPolicy(native=True)`), starts the
 teleop hook of the env, checks that a MuJoCo-side constructor raises
 `ImportError` there, composes a selection set that has no snapshot
 (`domain_rand=off`) with an override, merges the benchmark suite's motion
-library with `motion/package.py` and times config 2's rollout at 8 envs.
+library with `motion/package.py`, times config 2's rollout at 8 envs, and
+runs the offline motion pipeline: the eval CLI's `save_motion=true`, the
+contact-mask CLI, a short retarget fit of the side-kick's SMPL joints, and
+the viewers, whose drawing libraries raise there.
 
 `mujoco` may be imported only inside functions of the seven port modules of
-the MuJoCo side (`MUJOCO_MODULES`), so that every module imports on the
-card's machine; a top-level `import mujoco` anywhere fails the source check.
+the MuJoCo side (`MUJOCO_MODULES`), and matplotlib and rerun only inside
+functions of the viewers (`VIS_MODULES`), so that every module imports on the
+card's machine; a top-level import of either anywhere fails the source check.
 """
 import ast
 import subprocess
@@ -35,13 +40,19 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pbhc_tpu", "yaml", "joblib", "lxml", "mujoco",
-           "tensorboard")
+           "tensorboard", "matplotlib", "mpl_toolkits", "rerun")
 # the MuJoCo side of the deploy and eval stack: the only modules that may
 # import `mujoco`, and only inside a function
 MUJOCO_MODULES = {"pbhc_tpu_torch/deploy/mujoco_runtime.py", "pbhc_tpu_torch/deploy/urci.py",
                   "pbhc_tpu_torch/deploy/real_robot.py", "pbhc_tpu_torch/eval/sim2sim.py",
                   "pbhc_tpu_torch/envs/terrain.py", "pbhc_tpu_torch/sim/simulator.py",
                   "pbhc_tpu_torch/deploy/mj_mirror.py"}
+# the viewers: the only modules that may import matplotlib or rerun, and only
+# inside a function
+VIS_MODULES = {"pbhc_tpu_torch/vis/vis_motion.py", "pbhc_tpu_torch/vis/vis_rr.py",
+               "pbhc_tpu_torch/vis/vis_smpl.py"}
+SCOPED = {"mujoco": MUJOCO_MODULES, "matplotlib": VIS_MODULES, "mpl_toolkits": VIS_MODULES,
+          "rerun": VIS_MODULES}
 
 SCRIPT = textwrap.dedent("""
     import sys
@@ -137,9 +148,27 @@ SCRIPT = textwrap.dedent("""
     sim.refresh_sim_tensors()
     assert sim.robot_root_states.shape == (2, 13)
     sys.argv = ["pbhc_tpu_torch.eval_agent", f"checkpoint={{run}}/ckpt/model_10500.pkl", "device=cpu",
-                f"robot.motion.motion_file={{run.parent}}/short.pkl"]
+                f"robot.motion.motion_file={{run.parent}}/short.pkl", "save_motion=true"]
     runpy.run_module("pbhc_tpu_torch.eval_agent", run_name="__main__")
     assert (run / "exported" / "model_10500.onnx").is_file() and (run / "eval_model_10500.json").is_file()
+    from pbhc_tpu_torch.motion.motion_lib import load_joblib
+    assert load_joblib(run / "motion_model_10500.pkl")["rollout"]["dof"].shape[1] == 23
+    from pbhc_tpu_torch.model.g1 import load_g1_motion_model
+    from pbhc_tpu_torch.motion import retarget, tools
+    tools.main(["contact_mask", "assets/motions/Side_kick.pkl", "{base_dir}/cm.pkl", "device=cpu"])
+    assert load_joblib("{base_dir}/cm.pkl")[key]["contact_mask"].shape[1] == 2
+    fit = retarget.retarget_smpl_joints(load_g1_motion_model(), raw[key]["smpl_joints"][:5], iters=3,
+                                        device="cpu")
+    assert fit["dof"].shape == (5, 23)
+    from pbhc_tpu_torch.vis import vis_motion, vis_rr
+    for draw in (lambda: vis_motion.render_motion("assets/motions/Side_kick.pkl", "{base_dir}/m.gif",
+                                                  max_frames=2, device="cpu"),
+                 lambda: vis_rr.stream_motion("assets/motions/Side_kick.pkl", device="cpu")):
+        try:
+            draw()
+            raise AssertionError("a viewer drew without its drawing library")
+        except (ImportError, SystemExit):
+            pass
     import numpy as np
     from pbhc_tpu_torch.deploy import export
     from pbhc_tpu_torch.deploy.student_obs import MotionHost, StudentObsBuilder
@@ -215,17 +244,20 @@ def _imports(path):
 def test_no_forbidden_import_in_sources():
     files = sorted((REPO / "pbhc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
-    mujoco_in = set()
+    scoped_in = {root: set() for root in SCOPED}
     for f in files:
         rel = f.relative_to(REPO).as_posix()
         imports = _imports(f)
-        bad = {root for root, _ in imports if root in BLOCKED and root != "mujoco"}
+        bad = {root for root, _ in imports if root in BLOCKED and root not in SCOPED}
         assert not bad, f"{rel} imports {sorted(bad)}"
         for root, in_function in imports:
-            if root == "mujoco":
-                assert rel in MUJOCO_MODULES, f"{rel} imports mujoco: only {sorted(MUJOCO_MODULES)} may"
-                assert in_function, f"{rel} imports mujoco at module level: import it inside the function"
-                mujoco_in.add(rel)
-    # the scoping is not vacuous: the runtimes that build MuJoCo models import it
+            if root in SCOPED:
+                assert rel in SCOPED[root], f"{rel} imports {root}: only {sorted(SCOPED[root])} may"
+                assert in_function, f"{rel} imports {root} at module level: import it inside the function"
+                scoped_in[root].add(rel)
+    # the scoping is not vacuous: the runtimes that build MuJoCo models import
+    # it, and the viewers their drawing libraries
     assert {"pbhc_tpu_torch/deploy/mujoco_runtime.py", "pbhc_tpu_torch/deploy/mj_mirror.py",
-            "pbhc_tpu_torch/sim/simulator.py"} <= mujoco_in
+            "pbhc_tpu_torch/sim/simulator.py"} <= scoped_in["mujoco"]
+    assert scoped_in["matplotlib"] == {"pbhc_tpu_torch/vis/vis_motion.py", "pbhc_tpu_torch/vis/vis_smpl.py"}
+    assert scoped_in["rerun"] == {"pbhc_tpu_torch/vis/vis_rr.py"}
