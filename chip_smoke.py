@@ -44,12 +44,17 @@ holds every CUDA kernel they launch against its plain PyTorch version:
   by `pbhc_tpu_torch.parallel.mesh.run_ranks` (kernel 1);
 - the offline motion pipeline: `retarget_smpl_joints` over 200 frames,
   `python -m pbhc_tpu_torch.motion.smpl_npz`, the contact mask and the
-  stability filter on the card, and `eval_agent`'s `save_motion=true`.
+  stability filter on the card, and `eval_agent`'s `save_motion=true`;
+- the options of the ported paths that no committed run selects:
+  `contact_matvec_dtype` bfloat16 and float16 (kernel 1 in its reduced
+  matvec modes: one control step each, and the side-kick served over its
+  whole clip in bfloat16) and `parallel_serial_tau` on both batched
+  solvers (kernels 1 and 2).
 Phases, each announced when it starts and when it ends:
 
   build            - compile both kernels from `pbhc_tpu_torch/csrc/` (nvcc, sm_90a, in parallel)
   kernel           - each kernel vs its plain version at R = 12 and 38 rows (kernel 1 also at N = 2048,
-                     1024 and 64), with timings
+                     1024 and 64, and in its bfloat16 and float16 matvec modes), with timings
   substep          - one lanes control step at 4096 envs, kernel 1 vs plain solve
   substep-allrows  - the same with `contact_cap: 0` (every row, R = 38)
   substep-envfirst - one env-first control step at 4096 envs, kernel 2 vs plain solve
@@ -61,11 +66,20 @@ Phases, each announced when it starts and when it ends:
   substep-pgs      - the same with solver pgs
   substep-sdc      - one lanes control step with soft dynamic correction (alpha 0.1) at 4096 envs,
                      kernel 1 vs plain solve
+  substep-bf16     - one lanes control step of the side-kick at 4096 envs with
+                     `contact_matvec_dtype: bfloat16`, kernel 1 in its bfloat16 mode vs the plain
+                     solve in bfloat16 (4 launches in that mode)
+  substep-f16      - the same in float16
+  substep-pstau    - one control step at 4096 envs with `parallel_serial_tau` on, solver lanes and
+                     solver pallas: finite, 4 launches of the solver's kernel, the `rao` bump on the
+                     option's joints only
   serving          - the episode_ratio rollout; kernel launches counted from 0
   serving-kb2      - the KungfuBot2 teacher's episode_ratio rollout at 2048 envs; counted from 0
   serving-terrain  - terrain_walk_v3's episode_ratio rollout at 4096 envs; counted from 0
   serving-apgd     - the side-kick's episode_ratio rollout at 4096 envs with solver apgd; counted
                      from 0 (no kernel launches)
+  serving-bf16     - the side-kick's episode_ratio rollout at 4096 envs with
+                     `contact_matvec_dtype: bfloat16`; counted from 0 (kernel 1 in its bfloat16 mode)
   train-lanes      - the training CLI for 2 iterations, solver lanes; launches counted from 0
   train-pallas     - the training CLI for 2 iterations, solver pallas; launches counted from 0
   update           - one minibatch update on the card and on the CPU, same state and batch
@@ -170,10 +184,36 @@ EVAL_OFF = ["domain_rand.push_robots=false", "domain_rand.randomize_torque_rfi=f
 #   the f32 difference far below 1e-4, the repo's own kernel-parity bound
 #   (tests/test_pallas_contact.py::test_lanes_kernel_matches_xla_apgd).
 KERNEL_ATOL = 1e-4
+# - kernel 1's bfloat16 and float16 matvec modes vs the plain version in the
+#   same mode: the two f32 momentum points differ by an ulp (summation order,
+#   fused multiply-adds), and such an ulp can round y to the neighbouring
+#   bfloat16 / float16 value. One such flip moves an impulse by at most about
+#   one bfloat16 ulp of the largest |y| (2^-7 x ~3 = 2.3e-2 on these
+#   problems); the flips seen move a few impulses by up to 1.5e-3 (eval/
+#   kernel_bench.py, R = 12, N = 4096, NVIDIA H100 80GB HBM3, 700 W). Another
+#   product rule moves every impulse (its mean difference 1e-5 to 1e-4). So:
+#   max abs 1e-2 and mean abs 3e-6 (the mean bound tests/test_torch_engine_
+#   lanes.py holds the plain version to JAX by).
+MV_ATOL, MV_MEAN_ATOL = 1e-2, 3e-6
+# the kernels of the `kernels` line: kernel 1 in each matvec mode, kernel 2
+LANES_NAMES = {"float32": "apgd_lanes", "bfloat16": "apgd_lanes_bf16", "float16": "apgd_lanes_f16"}
+KERNEL_NAMES = (*LANES_NAMES.values(), "apgd_envfirst")
 # - one control step with kernel vs plain solve: the solve's f32 noise passes
 #   through 4 substeps; a relative 1e-3 of each field's scale is 10x tighter
 #   than the repo's own lanes-parity bound (1e-2 over 25 control steps).
 STEP_RTOL = 1e-3
+# - the same in a reduced matvec mode: the rounding flips above pass through
+#   4 substeps, and in the envs they hit, contacts and light links amplify
+#   them (the plain version against itself with another summation order, the
+#   side-kick at 1024 envs on the CPU: an env's largest relative difference
+#   up to 0.11 in bfloat16, 0.33 in float16, in a quarter of the envs above
+#   1e-3). The median over the envs stays low: 4.5e-4 (bfloat16) and 1.8e-4
+#   (float16) there, against 3.1e-3 to 3.6e-3 for a bfloat16 solve that
+#   rounds the product or stays in float32; kernel vs plain at 4096 envs on an
+#   H100 (NVIDIA H100 80GB HBM3, 700 W): 4.8e-4 and 1.6e-4, the largest env
+#   0.28 and 0.13. So the gate is the median env's largest relative
+#   difference, at most 1e-3.
+MV_STEP_MEDIAN_RTOL = 1e-3
 # - serving ratio: the JAX package's own figure for this checkpoint at 4096
 #   envs on the CPU (python -m pbhc_tpu.eval.batch_eval ... num_envs=4096,
 #   see PERF.md). The port draws its domain randomisation from other random
@@ -214,6 +254,16 @@ TERRAIN_RATIO_BAND = 0.02
 #   0.034); the same band as the lanes figure of this checkpoint.
 APGD_JAX_RATIO = 0.9973456899726432
 APGD_RATIO_BAND = 0.02
+# - bfloat16 serving ratio: the JAX package's own figure for the side-kick
+#   checkpoint at 4096 envs with the bfloat16 matvec on the CPU
+#   (JAX_PLATFORMS=cpu python -m pbhc_tpu.eval.batch_eval
+#   checkpoint=artifacts/kb1_side_kick/ckpt/model_10500.pkl mode=ratio
+#   num_envs=4096 simulator.config.contact_matvec_dtype=bfloat16, 13 min 15 s
+#   on the CPU, ratio_std 0.031); the same band as the float32 figure.
+BF16 = ["simulator.config.contact_matvec_dtype=bfloat16"]
+BF16_JAX_RATIO = 0.9977731415719697
+BF16_RATIO_BAND = 0.02
+PSTAU = ["domain_rand.parallel_serial_tau.enable=true"]
 # - eval-agent: the JAX package's own figures for the side-kick checkpoint
 #   with EVAL_OFF on the CPU (JAX_PLATFORMS=cpu python -m pbhc_tpu.eval_agent
 #   checkpoint=<copy of artifacts/kb1_side_kick>/ckpt/model_10500.pkl
@@ -302,12 +352,35 @@ def log(msg):
     print(msg, flush=True)
 
 
+def reset_counts(ck):
+    """Every launch count of the contact kernels (module `ck`) to 0."""
+    ck.apgd_lanes.launches = ck.apgd_envfirst.launches = 0
+    for mode in ck.apgd_lanes.mode_launches:
+        ck.apgd_lanes.mode_launches[mode] = 0
+
+
+def read_counts(ck):
+    """{name in KERNEL_NAMES: launches since reset_counts}."""
+    return {**{LANES_NAMES[mode]: n for mode, n in ck.apgd_lanes.mode_launches.items()},
+            "apgd_envfirst": ck.apgd_envfirst.launches}
+
+
 @contextlib.contextmanager
 def phase(name):
     t0 = time.perf_counter()
     log(f"[phase {name}] start")
     yield
     log(f"[phase {name}] ok in {time.perf_counter() - t0:.1f} s")
+
+
+def per_env_rel(torch, a, p):
+    """Each env's largest difference of the control step `a` from `p`, over
+    the fields, relative to the field's scale in `p` -> [N], on p's device."""
+    fields = ("root_pos", "root_quat", "root_lin_vel", "root_ang_vel", "dof_pos", "dof_vel", "body_pos",
+              "contact_forces")
+    n = p.root_pos.shape[0]
+    return torch.stack([(getattr(a, f).to(getattr(p, f).device) - getattr(p, f)).abs().reshape(n, -1).amax(1)
+                        / max(1.0, float(getattr(p, f).abs().max())) for f in fields]).amax(0)
 
 
 def compare_steps(torch, outs, tol):
@@ -534,11 +607,10 @@ def dp_rank(learn, train_argv):
                         "lr": float(ts.lr), "seconds": time.perf_counter() - t0}
         del algo, ts, half
         torch.cuda.empty_cache()
-    k1, k2 = contact_kernel.apgd_lanes, contact_kernel.apgd_envfirst
-    k1.launches = k2.launches = 0
+    reset_counts(contact_kernel)
     algo, ts, logs = train.main(train_argv)
     torch.cuda.synchronize()
-    out["train"] = {"logs": logs, "launches": {"apgd_lanes": k1.launches, "apgd_envfirst": k2.launches},
+    out["train"] = {"logs": logs, "launches": read_counts(contact_kernel),
                     "actor": flax_params(ts.actor), "critic": flax_params(ts.critic),
                     "local_envs": algo.env.num_envs, "world": algo.shard.world, "backend": algo.shard.backend}
     return out
@@ -572,23 +644,25 @@ def main():
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     k1, k2 = contact_kernel.apgd_lanes, contact_kernel.apgd_envfirst
     ok = True
-    stats = {"apgd_lanes": {}, "apgd_envfirst": {}}
-    launches = {"apgd_lanes": {}, "apgd_envfirst": {}}
+    stats = {name: {} for name in KERNEL_NAMES}
+    launches = {name: {} for name in KERNEL_NAMES}
 
     def count(path, fn):
-        """Run `fn` with both kernels' launch counts set to 0, then record them."""
-        k1.launches = k2.launches = 0
+        """Run `fn` with every launch count set to 0, then record them."""
+        reset_counts(contact_kernel)
         out = fn()
         torch.cuda.synchronize()
-        launches["apgd_lanes"][path], launches["apgd_envfirst"][path] = k1.launches, k2.launches
-        log(f"{path}: apgd_lanes launched {k1.launches}, apgd_envfirst launched {k2.launches}")
+        for name, n in read_counts(contact_kernel).items():
+            launches[name][path] = n
+        log(f"{path}: " + ", ".join(f"{name} launched {launches[name][path]}" for name in KERNEL_NAMES))
         return out
 
     def expect_launches(path, want):
+        """Each kernel launched as `want` says on `path`, the unnamed ones not at all."""
         nonlocal ok
-        for name, n in want.items():
-            if launches[name][path] != n:
-                log(f"FAIL: {path}: {name} launched {launches[name][path]} times, want {n}")
+        for name in KERNEL_NAMES:
+            if launches[name][path] != want.get(name, 0):
+                log(f"FAIL: {path}: {name} launched {launches[name][path]} times, want {want.get(name, 0)}")
                 ok = False
 
     with phase("build"):
@@ -601,40 +675,46 @@ def main():
                     log(f"  {name}: {line.strip()}")
 
     with phase("kernel"):
-        for name, (kernel, _, plain, problem, bound, _) in kernel_bench.KERNELS.items():
+        for name, k in kernel_bench.KERNELS.items():
             # kernel 1 also at the KungfuBot2 paths' shape (R = 12, N = 2048),
             # and at the benchmark suite's smallest and 29-DoF widths (N = 64, 1024)
             shapes = [(ROWS, NUM_ENVS), (ALL_ROWS, NUM_ENVS)] + (
                 [(ROWS, KB2_ENVS), (ROWS, 64), (ROWS, 1024)] if name == "apgd_lanes" else [])
             for R, N in shapes:
-                args = problem(R, N, dev, R)
-                out = kernel(*args, ITERS)
-                ref = plain(*args, ITERS)
+                args = k.problem(R, N, dev, R)
+                out = k.wrapper(*args, ITERS)
+                ref = k.plain(*args, ITERS)
                 torch.cuda.synchronize()
-                err = float((out - ref).abs().max())
-                bound_ms, bound_by = bound(R, N, ITERS)
+                err, mean_err = float((out - ref).abs().max()), float((out - ref).abs().mean())
+                bound_ms, bound_by = k.bound(R, N, ITERS)
                 # ms: per launch over 50 launches back to back, CUDA events (the
                 # host's launch cost shows there); ms_device: the kernel's own
                 # device time, from a profiler trace of 50 launches
-                st = dict(max_abs_err=err, ms=kernel_bench.cuda_ms(lambda: kernel(*args, ITERS), 50),
-                          ms_device=kernel_bench.device_ms(lambda: kernel(*args, ITERS), 50, name),
-                          plain_ms=kernel_bench.cuda_ms(lambda: plain(*args, ITERS), 10),
-                          bound_ms=bound_ms, bound_by=bound_by, tile=contact_kernel.tile(name, R))
+                st = dict(max_abs_err=err, mean_abs_err=mean_err,
+                          ms=kernel_bench.cuda_ms(lambda: k.wrapper(*args, ITERS), 50),
+                          ms_device=kernel_bench.device_ms(lambda: k.wrapper(*args, ITERS), 50, k.symbol),
+                          plain_ms=kernel_bench.cuda_ms(lambda: k.plain(*args, ITERS), 10),
+                          bound_ms=bound_ms, bound_by=bound_by, tile=contact_kernel.tile(k.symbol, R, k.mode))
                 # the first paths' shape (R = 12, N = 4096) is the kernel's entry; every row
                 # (R = 38) and the other widths (N = 2048, 1024, 64) ride along
                 stats[name].update(st if (R, N) == (ROWS, NUM_ENVS) else {f"r{R}" if R != ROWS else f"n{N}": st})
-                log(f"{name} R={R} N={N} iters={ITERS}: max_abs_err {err:.3e} (tol {KERNEL_ATOL:g}), "
-                    f"|ref| max {float(ref.abs().max()):.3f}, kernel {st['ms']:.5f} ms per launch back to back, "
-                    f"{st['ms_device']:.5f} ms on the device, plain {st['plain_ms']:.5f} ms, "
-                    f"bound {bound_ms * 1e3:.2f} us ({bound_by}) on {card}")
-                if not (bool(torch.isfinite(out).all()) and err <= KERNEL_ATOL):
+                reduced = k.mode != "float32"
+                tol = f"tol {MV_ATOL:g}, mean tol {MV_MEAN_ATOL:g}" if reduced else f"tol {KERNEL_ATOL:g}"
+                log(f"{name} ({k.mode}) R={R} N={N} iters={ITERS}: max_abs_err {err:.3e}, mean {mean_err:.3e} "
+                    f"({tol}), |ref| max {float(ref.abs().max()):.3f}, kernel {st['ms']:.5f} ms per launch back "
+                    f"to back, {st['ms_device']:.5f} ms on the device, plain {st['plain_ms']:.5f} ms, "
+                    f"bound {bound_ms * 1e3:.2f} us ({bound_by}), tile (E, P) = {st['tile']} on {card}")
+                good = err <= MV_ATOL and mean_err <= MV_MEAN_ATOL if reduced else err <= KERNEL_ATOL
+                if not (bool(torch.isfinite(out).all()) and good):
                     log(f"FAIL: {name} disagrees with its plain version at R={R}")
                     ok = False
                 del args, out, ref
 
-    def lanes_step_check(env, state, obs, act, rows):
+    def lanes_step_check(env, state, obs, act, rows, mode="float32", path=None):
         """One lanes control step of `env` (after SETTLE_STEPS under `act`),
-        kernel 1 vs its plain version; every solve must have `rows` rows."""
+        kernel 1 vs its plain version; every solve must have `rows` rows and
+        run in the matvec mode `mode`. With `path`, the kernel's run is
+        counted under it: 4 launches in that mode."""
         nonlocal ok
         with torch.no_grad():
             # settle onto the soles first: at clip time 0 no contact row is active
@@ -650,33 +730,46 @@ def main():
         lanes = env.lanes_engine
         outs, seen = {}, []
         for name, solve in (("kernel", k1), ("plain", contact_kernel.apgd_lanes_plain)):
-            def recorded(A, b, mu, active, x0, iters, solve=solve):
-                seen.append(active.shape[0])
-                return solve(A, b, mu, active, x0, iters)
+            def recorded(A, b, mu, active, x0, iters, mv_dtype="float32", solve=solve):
+                seen.append((active.shape[0], mv_dtype))
+                return solve(A, b, mu, active, x0, iters, mv_dtype)
 
             lanes.contact_solve = recorded
             pre = env._sdc_pre_fn(state, state.sim) if env.use_sdc else None
-            outs[name], _ = lanes.control_step_batched(env.sim_params, state.sim, pd, env.decimation,
-                                                       paramsT=env.paramsT, pre_substep_fn=pre)
+            step = lambda: lanes.control_step_batched(env.sim_params, state.sim, pd, env.decimation,
+                                                      paramsT=env.paramsT, pre_substep_fn=pre)
+            outs[name], _ = count(path, step) if path and name == "kernel" else step()
         lanes.contact_solve = k1
         torch.cuda.synchronize()
-        worst, step_ok = compare_steps(torch, outs, STEP_RTOL)
-        ok = ok and step_ok
+        if mode == "float32":
+            worst, step_ok = compare_steps(torch, outs, STEP_RTOL)
+            ok = ok and step_ok
+            diff = f"max relative diff {worst:.3e} (tol {STEP_RTOL:g})"
+        else:
+            rel = per_env_rel(torch, outs["kernel"], outs["plain"])
+            q = torch.quantile(rel, torch.tensor([0.5, 0.9, 0.99], device=rel.device)).tolist()
+            diff = (f"each env's largest relative diff: median {q[0]:.3e} (tol {MV_STEP_MEDIAN_RTOL:g}), 90% "
+                    f"{q[1]:.3e}, 99% {q[2]:.3e}, max {float(rel.max()):.3e}")
+            if not (bool(torch.isfinite(rel).all()) and q[0] <= MV_STEP_MEDIAN_RTOL):
+                log(f"FAIL: the {mode} control step's median env parts from the plain solve's")
+                ok = False
         n = env.num_envs
         in_contact = int((outs["plain"].contact_forces.abs().sum((1, 2)) > 0).sum())
-        log(f"one lanes control step at {n} envs, {env.nd} DoF, R = {sorted(set(seen))} rows ({in_contact} envs "
-            f"with contact impulses), kernel vs plain solve: max relative diff {worst:.3e} (tol {STEP_RTOL:g})")
+        log(f"one lanes control step at {n} envs, {env.nd} DoF, R = {sorted({r for r, _ in seen})} rows, matvec "
+            f"{sorted({m for _, m in seen})} ({in_contact} envs with contact impulses), kernel vs plain solve: {diff}")
         if in_contact < n // 2:
             log("FAIL: too few envs in contact for the comparison to test the solve")
             ok = False
-        if set(seen) != {rows}:
-            log(f"FAIL: the step solved with R = {sorted(set(seen))} rows, want {rows}")
+        if set(seen) != {(rows, mode)}:
+            log(f"FAIL: the step solved with (R, matvec) = {sorted(set(seen))}, want {(rows, mode)}")
             ok = False
+        if path:
+            expect_launches(path, {LANES_NAMES[mode]: env.decimation})
 
-    def side_kick_step_check(overrides, rows):
+    def side_kick_step_check(overrides, rows, mode="float32", path=None):
         env, actor, _ = batch_eval.load(CKPT, NUM_ENVS, overrides, device=dev)
         state, obs = batch_eval.start_episodes(env)
-        lanes_step_check(env, state, obs, lambda o: actor(o["actor_obs"])[0], rows)
+        lanes_step_check(env, state, obs, lambda o: actor(o["actor_obs"])[0], rows, mode, path)
 
     with phase("substep"):
         side_kick_step_check((), ROWS)
@@ -780,10 +873,7 @@ def main():
         cpu_out, _ = cpu_engine.control_step(cpu_params, cpu_sim, pd_on("cpu"), env.decimation)
         cpu_s = time.perf_counter() - t0
         expect_launches(path, {"apgd_lanes": 0, "apgd_envfirst": 0})
-        fields = ("root_pos", "root_quat", "root_lin_vel", "root_ang_vel", "dof_pos", "dof_vel", "body_pos",
-                  "contact_forces")
-        rel = torch.stack([(getattr(card_out, f).cpu() - getattr(cpu_out, f)).abs().reshape(NUM_ENVS, -1).amax(1)
-                           / max(1.0, float(getattr(cpu_out, f).abs().max())) for f in fields]).amax(0)
+        rel = per_env_rel(torch, card_out, cpu_out)
         far = rel > STEP_RTOL
         jumps = torch.zeros_like(far)
         if far.any():
@@ -818,15 +908,53 @@ def main():
         # through the lanes engine's pre-substep hook
         side_kick_step_check(tuple(SDC), ROWS)
 
-    def serving(path, ckpt, n, jax_ratio, band, overrides=(), kernel_launches=True):
+    for mode in ("bfloat16", "float16"):
+        # the side-kick config names `lanes_contact_kernel: xla`: the solve
+        # runs in the dtype, as JAX's XLA `_apgd` does
+        path = {"bfloat16": "substep-bf16", "float16": "substep-f16"}[mode]
+        with phase(path):
+            side_kick_step_check((f"simulator.config.contact_matvec_dtype={mode}",), ROWS, mode, path)
+        torch.cuda.empty_cache()
+
+    with phase("substep-pstau"):
+        # `parallel_serial_tau` on both batched solvers (as in JAX: the `rao`
+        # bump at reset, no torque injection). The reset's first draw of the
+        # episodic randomisation, against the same env's without the option
+        # (both from seed 0): the bump lands on the option's joints only
+        for solver, kernel, physics in (("lanes", "apgd_lanes", "lanes"), ("pallas", "apgd_envfirst", "batched")):
+            path = f"substep-pstau-{solver}"
+            rao = {}
+            for name, extra in (("plain", []), ("pstau", PSTAU)):
+                cfg = compose(TRAIN_SELECTIONS, TRAIN_OVERRIDES + [f"simulator.config.solver={solver}", *extra])
+                env = MotionTrackingEnv(cfg, NUM_ENVS, device=dev, seed=0)
+                rao[name] = env._episodic_dr(NUM_ENVS)[3]
+            joints = list(env.dr.parallel_serial_tau.joint_idx)
+            moved = (rao["pstau"] != rao["plain"]).any(0).nonzero()[:, 0].tolist()
+            state = env.reset_to_start(env.init_state())
+            obs, state.history = env.compute_observations(state)
+            zero = torch.zeros((NUM_ENVS, env.num_actions), device=dev)
+            with torch.no_grad():
+                state, obs, _, _, _ = count(path, lambda: env.step(state, zero))
+            expect_launches(path, {kernel: env.decimation})
+            finite = all(bool(torch.isfinite(x).all()) for x in (state.sim.dof_pos, state.sim.root_pos,
+                                                                  obs["actor_obs"]))
+            log(f"{path}: physics {env.physics}, rao bump on joints {moved} (option's {joints}), "
+                f"state and observations finite {finite}")
+            if not (env.use_pstau and env.physics == physics and moved == joints and finite):
+                log(f"FAIL: {path}")
+                ok = False
+            del cfg, env, state, obs, rao, zero
+            torch.cuda.empty_cache()
+
+    def serving(path, ckpt, n, jax_ratio, band, overrides=(), kernel="apgd_lanes"):
         """`episode_ratio` of `ckpt` at `n` envs, its launches counted from 0:
-        4 of kernel 1 per control step on the lanes engine, none per env."""
+        4 of `kernel` (kernel 1 in one matvec mode) per control step on the
+        lanes engine, none per env (`kernel` None)."""
         nonlocal ok
         with phase(path):
             res = count(path, lambda: batch_eval.episode_ratio(ckpt, n, overrides, device=dev))
             log(f"episode_ratio ({path}): " + json.dumps(res))
-            expect_launches(path, {"apgd_lanes": 4 * res["episode_steps"] if kernel_launches else 0,
-                                   "apgd_envfirst": 0})
+            expect_launches(path, {kernel: 4 * res["episode_steps"]} if kernel else {})
             if res["nonfinite_env_steps"] != 0:
                 log(f"FAIL: {res['nonfinite_env_steps']} env-steps ended non-finite")
                 ok = False
@@ -839,7 +967,8 @@ def main():
     serving("serving", CKPT, NUM_ENVS, JAX_RATIO, RATIO_BAND)
     serving("serving-kb2", KB2_CKPT, KB2_ENVS, KB2_JAX_RATIO, KB2_RATIO_BAND)
     serving("serving-terrain", TERRAIN_CKPT, NUM_ENVS, TERRAIN_JAX_RATIO, TERRAIN_RATIO_BAND)
-    serving("serving-apgd", CKPT, NUM_ENVS, APGD_JAX_RATIO, APGD_RATIO_BAND, PER_ENV, kernel_launches=False)
+    serving("serving-apgd", CKPT, NUM_ENVS, APGD_JAX_RATIO, APGD_RATIO_BAND, PER_ENV, kernel=None)
+    serving("serving-bf16", CKPT, NUM_ENVS, BF16_JAX_RATIO, BF16_RATIO_BAND, BF16, kernel="apgd_lanes_bf16")
 
     def train_v1(path, selections, solver, iters):
         """The training CLI on a v1 selection set at 4096 envs for `iters`
@@ -1010,11 +1139,11 @@ def main():
                 "(or the bound does not tell other samples apart)")
             ok = False
         for name, results in (("dp", [r["train"] for r in ranks]), ("dp-nccl", [nccl["train"]])):
-            for n in ("apgd_lanes", "apgd_envfirst"):
+            for n in KERNEL_NAMES:
                 launches[n][name] = sum(r["launches"][n] for r in results)
             for r, res in enumerate(results):
                 bad = sorted({k for x in res["logs"] for k, v in x.items() if not np.isfinite(v)})
-                want = {"apgd_lanes": 96 * DP_ITERS, "apgd_envfirst": 0}
+                want = dict(dict.fromkeys(KERNEL_NAMES, 0), apgd_lanes=96 * DP_ITERS)
                 log(f"{name} rank {r}/{res['world']} ({res['backend']}, {res['local_envs']} envs): launches "
                     f"{res['launches']}, per iteration rollout/update seconds "
                     + ", ".join(f"{x['rollout_s']:.3f}/{x['update_s']:.3f}" for x in res["logs"])
@@ -1492,9 +1621,13 @@ def main():
         log("chip_smoke: FAILED")
         return 1
     with phase("report"):
-        sources = {"apgd_lanes": ("pbhc_tpu_torch/csrc/apgd_lanes.cu", "pbhc_tpu/sim/pallas_contact.py:112"),
-                   "apgd_envfirst": ("pbhc_tpu_torch/csrc/apgd_envfirst.cu", "pbhc_tpu/sim/pallas_contact.py:37")}
+        # kernel 1's reduced matvec modes compute what JAX's XLA `_apgd` does
+        # in that dtype (engine_lanes.py:662-672), as an option of kernel 1
+        sources = {name: ("pbhc_tpu_torch/csrc/apgd_lanes.cu", "pbhc_tpu/sim/pallas_contact.py:112")
+                   for name in LANES_NAMES.values()}
+        sources["apgd_envfirst"] = ("pbhc_tpu_torch/csrc/apgd_envfirst.cu", "pbhc_tpu/sim/pallas_contact.py:37")
         kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                        mode=kernel_bench.KERNELS[name].mode,
                         launches=sum(launches[name].values()),
                         launches_by_path=dict(launches[name]),
                         library_ms=None, **stats[name])

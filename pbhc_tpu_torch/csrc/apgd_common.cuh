@@ -28,9 +28,21 @@
 //   x = P(y - (g + b) / L), computed alike by the P threads
 // so the critical path is n / P dependent FMAs, log2 P shuffles and one
 // barrier.
+//
+// Matvec modes (template parameter T of `iterate`, kernel 1 only): float,
+// or a reduced type (__nv_bfloat16, __half) in which A and y enter the
+// product as JAX's lanes engine computes it (`contact_matvec_dtype`): A is
+// rounded to T once, in place in the f32 tile, by the thread that reads each
+// entry for the Lipschitz bound right after it has read the f32 value
+// (`inv_lipschitz<T>`), and y when it is written to shared memory; x, b, 1/L
+// and the projection stay f32. The product of two bfloat16 values is exact
+// in f32, so that mode keeps the FMA; in the float16 mode the product is
+// rounded to float16 before it is added (`madd`). The sums are in f32.
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -164,6 +176,31 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src, int cp_by
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
+// `v` rounded to T (to nearest, ties to even), as a float.
+template <class T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else if constexpr (std::is_same_v<T, __half>) {
+    return __half2float(__float2half_rn(v));
+  } else {
+    static_assert(std::is_same_v<T, float>, "matvec modes: float, __nv_bfloat16, __half");
+    return v;
+  }
+}
+
+// g + a y for a and y already rounded to T: exact product (float and
+// bfloat16 operands: one rounding, at the sum), or for __half the product
+// rounded to float16 first.
+template <class T>
+__device__ __forceinline__ float madd(float a, float y, float g) {
+  if constexpr (std::is_same_v<T, __half>) {
+    return g + round_to<__half>(__fmul_rn(a, y));
+  } else {
+    return fmaf(a, y, g);
+  }
+}
+
 // Friction-cone projection of one contact; inactive contacts (act = 0) go to 0.
 __device__ __forceinline__ void project(const float v[3], float mu, float act, float x[3]) {
   const float ln = fmaxf(v[2], 0.0f);
@@ -194,16 +231,18 @@ struct Thread {
       : t(make_tile(R, E, P)), sh(shared), e(threadIdx.x % E), p(threadIdx.x / E % P),
         r(threadIdx.x / (E * P)), live(r < R && env0 + e < N) {}
   // A[i][0] of this thread's env; column j at + j * E
-  __device__ const float* arow(int i) const { return sh + t.a_off + i * t.srow * E + e; }
+  __device__ float* arow(int i) const { return sh + t.a_off + i * t.srow * E + e; }
   __device__ float* act() const { return sh + t.act_off; }
   // columns of this thread's part: p, p + P, ...
   __device__ int columns() const { return (t.n - p + P - 1) / P; }
 };
 
 // 1 / L with L = max absolute row sum of A over the active rows of this
-// thread's env (no active row gives 1e6). Ends with a barrier; must follow
-// the one that publishes A and act.
-template <int E, int P>
+// thread's env (no active row gives 1e6), from the f32 entries; each entry
+// is read by one thread, which then leaves it rounded to T (the matvec mode;
+// no write for float). Ends with a barrier; must follow the one that
+// publishes A and act.
+template <class T = float, int E, int P>
 __device__ inline float inv_lipschitz(const Thread<E, P>& th, float act_r) {
   const Tile& t = th.t;
   float s[3] = {0.0f, 0.0f, 0.0f};
@@ -211,10 +250,12 @@ __device__ inline float inv_lipschitz(const Thread<E, P>& th, float act_r) {
     const float* act = th.act() + th.e;
     const int cols = th.columns();
     for (int c = 0; c < 3; ++c) {
-      const float* a = th.arow(3 * th.r + c);
+      float* a = th.arow(3 * th.r + c);
       for (int k = 0; k < cols; ++k) {
         const int j = th.p + k * P;
-        s[c] += fabsf(a[j * E]) * act[j / 3 * E];
+        const float v = a[j * E];
+        s[c] += fabsf(v) * act[j / 3 * E];
+        if constexpr (!std::is_same_v<T, float>) a[j * E] = round_to<T>(v);
       }
     }
   }
@@ -232,8 +273,9 @@ __device__ inline float inv_lipschitz(const Thread<E, P>& th, float act_r) {
   return 1.0f / fmaxf(L, 1e-6f);
 }
 
-// `iters` APGD steps from (x, x_prev); beta(it) gives the momentum of step it.
-template <int E, int P, class Beta>
+// `iters` APGD steps from (x, x_prev); beta(it) gives the momentum of step
+// it; the matvec in mode T (A already rounded to T by inv_lipschitz<T>).
+template <class T = float, int E, int P, class Beta>
 __device__ inline void iterate(const Thread<E, P>& th, float inv_L, float mu, float act_r, const float b[3],
                                float x[3], float xp[3], int iters, Beta beta) {
   constexpr int cs = P * E;  // float distance of a part's neighbouring columns
@@ -256,7 +298,7 @@ __device__ inline void iterate(const Thread<E, P>& th, float inv_L, float mu, fl
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         const int i = 3 * th.r + c;
-        ybuf[(th.e * P + i % P) * t.sy + i / P] = y[c];
+        ybuf[(th.e * P + i % P) * t.sy + i / P] = round_to<T>(y[c]);
       }
     }
     __syncthreads();  // every row of y is written (the other buffer is free: see the file note)
@@ -267,24 +309,24 @@ __device__ inline void iterate(const Thread<E, P>& th, float inv_L, float mu, fl
       for (int k = 0; k < cols4; k += 4) {
         const float4 yy = *reinterpret_cast<const float4*>(yp + k);
         const int o = k * cs;
-        g0 = fmaf(a0[o], yy.x, g0);
-        g1 = fmaf(a1[o], yy.x, g1);
-        g2 = fmaf(a2[o], yy.x, g2);
-        g0 = fmaf(a0[o + cs], yy.y, g0);
-        g1 = fmaf(a1[o + cs], yy.y, g1);
-        g2 = fmaf(a2[o + cs], yy.y, g2);
-        g0 = fmaf(a0[o + 2 * cs], yy.z, g0);
-        g1 = fmaf(a1[o + 2 * cs], yy.z, g1);
-        g2 = fmaf(a2[o + 2 * cs], yy.z, g2);
-        g0 = fmaf(a0[o + 3 * cs], yy.w, g0);
-        g1 = fmaf(a1[o + 3 * cs], yy.w, g1);
-        g2 = fmaf(a2[o + 3 * cs], yy.w, g2);
+        g0 = madd<T>(a0[o], yy.x, g0);
+        g1 = madd<T>(a1[o], yy.x, g1);
+        g2 = madd<T>(a2[o], yy.x, g2);
+        g0 = madd<T>(a0[o + cs], yy.y, g0);
+        g1 = madd<T>(a1[o + cs], yy.y, g1);
+        g2 = madd<T>(a2[o + cs], yy.y, g2);
+        g0 = madd<T>(a0[o + 2 * cs], yy.z, g0);
+        g1 = madd<T>(a1[o + 2 * cs], yy.z, g1);
+        g2 = madd<T>(a2[o + 2 * cs], yy.z, g2);
+        g0 = madd<T>(a0[o + 3 * cs], yy.w, g0);
+        g1 = madd<T>(a1[o + 3 * cs], yy.w, g1);
+        g2 = madd<T>(a2[o + 3 * cs], yy.w, g2);
       }
       for (int k = cols4; k < cols; ++k) {
         const float yk = yp[k];
-        g0 = fmaf(a0[k * cs], yk, g0);
-        g1 = fmaf(a1[k * cs], yk, g1);
-        g2 = fmaf(a2[k * cs], yk, g2);
+        g0 = madd<T>(a0[k * cs], yk, g0);
+        g1 = madd<T>(a1[k * cs], yk, g1);
+        g2 = madd<T>(a2[k * cs], yk, g2);
       }
     }
     g0 = sum_parts<E, P>(g0);

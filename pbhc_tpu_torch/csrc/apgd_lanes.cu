@@ -30,14 +30,29 @@
 // P = 1 at R = 12; E = 4, P = 2 at R = 38). What remains is the 17 passes over A
 // in shared memory per solve (the Lipschitz bound and 16 iterations) and a
 // copy of A that no other tile on the SM hides.
+//
+// Reduced-precision modes (`contact_matvec_dtype` bfloat16 / float16; JAX's
+// XLA `_apgd`, engine_lanes.py:662-672): the same kernel, templated on the
+// matvec type T. A still arrives in f32 (the einsum's output) and the bound
+// is the f32 mode's, since A is read from device memory once in f32 either
+// way. The tile stays f32: the thread that reads an entry of A for the
+// Lipschitz bound writes it back rounded to T (apgd::inv_lipschitz<T>; no
+// extra pass or barrier), y is rounded to T where it is written, and the
+// product follows the mode (apgd::madd).
+// A tile of 2-byte A would fit twice the envs per block, but needs a loader
+// that converts through registers and its own layout and bank check; the
+// kernel is memory bound on the f32 read of A, which a 2-byte tile does not
+// shorten.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "apgd_common.cuh"
 
 namespace {
 
-template <int E, int P>
+template <class T, int E, int P>
 __global__ void apgd_lanes_kernel(const float* __restrict__ A, const float* __restrict__ b,
                                   const float* __restrict__ mu, const float* __restrict__ active,
                                   const float* __restrict__ x0, float* __restrict__ out, int R, int N,
@@ -74,10 +89,10 @@ __global__ void apgd_lanes_kernel(const float* __restrict__ A, const float* __re
   apgd::cp_async_wait_all();
   __syncthreads();  // A and the mask are in shared memory
 
-  const float inv_L = apgd::inv_lipschitz(th, act_r);
+  const float inv_L = apgd::inv_lipschitz<T>(th, act_r);  // and A rounded to T
   float xp[3] = {x[0], x[1], x[2]};
   float theta = 1.0f;
-  apgd::iterate(th, inv_L, mu_e, act_r, bi, x, xp, iters, [&theta](int) {
+  apgd::iterate<T>(th, inv_L, mu_e, act_r, bi, x, xp, iters, [&theta](int) {
     const float t2 = theta * theta;
     const float theta_new = 0.5f * (sqrtf(t2 * t2 + 4.0f * t2) - t2);
     const float beta = theta * (1.0f - theta) / (t2 + theta_new);
@@ -94,37 +109,21 @@ __global__ void apgd_lanes_kernel(const float* __restrict__ A, const float* __re
 constexpr int kTilesPerSm = 1;
 static_assert(apgd::chosen_tiles_hold(kTilesPerSm), "a chosen tile does not fit or has bank conflicts");
 
-}  // namespace
-
-// Most contact rows one launch takes (n = 3R <= 128).
-extern "C" int apgd_lanes_max_rows() { return apgd::kMaxRows; }
-
-// The tile apgd_lanes_launch takes at R rows: E envs per block, P threads
-// per contact.
-extern "C" void apgd_lanes_tile(int R, int* E, int* P) {
-  const apgd::Shape s = apgd::choose_tile(R, kTilesPerSm);
-  *E = s.E;
-  *P = s.P;
-}
-
-// Launches on `stream` with E envs per block and P threads per contact;
-// returns the CUDA error code of the launch (0 = cudaSuccess), or -1 for an
-// R, N or tile the kernel does not take.
-extern "C" int apgd_lanes_launch_tile(const void* A, const void* b, const void* mu, const void* active,
-                                      const void* x0, void* out, int R, int N, int iters, int E, int P,
-                                      void* stream) {
-  if (R < 1 || R > apgd::kMaxRows || N < 1 || iters < 0) return -1;
+// Launches the mode-T kernel with E envs per block and P threads per contact.
+template <class T>
+int launch(const void* A, const void* b, const void* mu, const void* active, const void* x0, void* out, int R,
+           int N, int iters, int E, int P, void* stream) {
   return apgd::with_tile(E, P, [&](auto e_, auto p_) {
     constexpr int kE = decltype(e_)::value, kP = decltype(p_)::value;
     static apgd::LaunchCache cache[16];
     const apgd::Tile t = apgd::make_tile(R, kE, kP);
-    const int err = apgd::prepare(apgd_lanes_kernel<kE, kP>, t, cache);
+    const int err = apgd::prepare(apgd_lanes_kernel<T, kE, kP>, t, cache);
     if (err != 0) return err;
     // widest copy (envs per cp.async) that keeps every chunk aligned
     int vec = kE < 4 ? kE : 4;
     while (vec > 1 && (N % vec != 0 || reinterpret_cast<uintptr_t>(A) % (4 * vec) != 0)) vec /= 2;
-    apgd_lanes_kernel<kE, kP><<<(N + kE - 1) / kE, t.threads, static_cast<size_t>(t.floats) * sizeof(float),
-                                static_cast<cudaStream_t>(stream)>>>(
+    apgd_lanes_kernel<T, kE, kP><<<(N + kE - 1) / kE, t.threads, static_cast<size_t>(t.floats) * sizeof(float),
+                                   static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(A), static_cast<const float*>(b), static_cast<const float*>(mu),
         static_cast<const float*>(active), static_cast<const float*>(x0), static_cast<float*>(out), R,
         N, iters, vec);
@@ -132,11 +131,59 @@ extern "C" int apgd_lanes_launch_tile(const void* A, const void* b, const void* 
   });
 }
 
-// Launches on `stream` with the tile apgd_lanes_tile gives R; returns as
-// apgd_lanes_launch_tile.
+}  // namespace
+
+// Most contact rows one launch takes (n = 3R <= 128).
+extern "C" int apgd_lanes_max_rows() { return apgd::kMaxRows; }
+
+// The tile apgd_lanes_launch takes at R rows: E envs per block, P threads
+// per contact (the same in every matvec mode).
+extern "C" void apgd_lanes_tile(int R, int* E, int* P) {
+  const apgd::Shape s = apgd::choose_tile(R, kTilesPerSm);
+  *E = s.E;
+  *P = s.P;
+}
+
+// Launches on `stream` in matvec mode `mode` (0 float32, 1 bfloat16,
+// 2 float16) with E envs per block and P threads per contact, or with the
+// tile apgd_lanes_tile gives R where E = P = 0; returns the CUDA error code
+// of the launch (0 = cudaSuccess), or -1 for an R, N, mode or tile the
+// kernel does not take.
+extern "C" int apgd_lanes_launch_mode(const void* A, const void* b, const void* mu, const void* active,
+                                      const void* x0, void* out, int R, int N, int iters, int mode, int E, int P,
+                                      void* stream) {
+  if (R < 1 || R > apgd::kMaxRows || N < 1 || iters < 0) return -1;
+  if (E == 0 && P == 0) {
+    const apgd::Shape s = apgd::choose_tile(R, kTilesPerSm);
+    E = s.E;
+    P = s.P;
+  }
+  switch (mode) {
+    case 0:
+      return launch<float>(A, b, mu, active, x0, out, R, N, iters, E, P, stream);
+    case 1:
+      return launch<__nv_bfloat16>(A, b, mu, active, x0, out, R, N, iters, E, P, stream);
+    case 2:
+      return launch<__half>(A, b, mu, active, x0, out, R, N, iters, E, P, stream);
+    default:
+      return -1;
+  }
+}
+
+// The float32 mode with E envs per block and P threads per contact; returns
+// as apgd_lanes_launch_mode. (This and apgd_lanes_launch keep the C
+// signatures of the earlier designs, which `eval/kernel_bench.py old=`
+// times against.)
+extern "C" int apgd_lanes_launch_tile(const void* A, const void* b, const void* mu, const void* active,
+                                      const void* x0, void* out, int R, int N, int iters, int E, int P,
+                                      void* stream) {
+  if (E < 1 || P < 1) return -1;
+  return apgd_lanes_launch_mode(A, b, mu, active, x0, out, R, N, iters, 0, E, P, stream);
+}
+
+// The float32 mode at the tile apgd_lanes_tile gives R; returns as
+// apgd_lanes_launch_mode.
 extern "C" int apgd_lanes_launch(const void* A, const void* b, const void* mu, const void* active,
                                  const void* x0, void* out, int R, int N, int iters, void* stream) {
-  if (R < 1 || R > apgd::kMaxRows) return -1;
-  const apgd::Shape s = apgd::choose_tile(R, kTilesPerSm);
-  return apgd_lanes_launch_tile(A, b, mu, active, x0, out, R, N, iters, s.E, s.P, stream);
+  return apgd_lanes_launch_mode(A, b, mu, active, x0, out, R, N, iters, 0, 0, 0, stream);
 }

@@ -16,9 +16,10 @@ flat plane or on the heightfield terrain of a `terrain:` group with
 `mesh_type: heightfield` (per-env tile origins over the difficulty grid and
 the level curriculum). So are soft dynamic correction (on the lanes branch,
 else on the per-env branch, as in JAX), the OU observation-noise process,
-the probabilistic close-to-limit terminations, `parallel_serial_tau` (the
-per-env branch only: JAX's batched branches ignore it, and the port refuses
-it there rather than copy either behaviour), the MPPI snapshots,
+the probabilistic close-to-limit terminations, `parallel_serial_tau` (its
+gaussian `rao` bump at reset on every branch, its torque injection on the
+per-env branch only, as in JAX, whose lanes and env-first torque functions
+leave it out), the MPPI snapshots,
 `obs_key_slices` and the teleop hook (`use_teleop_control`: a
 `deploy/teleop.py::TeleopSource` listening on `teleop_port`, default 9870,
 and a marker buffer `teleop_marker_coords` [N,3,3] on the host, as in JAX;
@@ -149,10 +150,6 @@ class MotionTrackingEnv:
             self.physics = "per_env"
         pstau = config.domain_rand.get("parallel_serial_tau", {})
         self.use_pstau = bool(pstau and pstau.get("enable", False))
-        if self.use_pstau and self.physics != "per_env":
-            raise NotImplementedError(
-                "parallel_serial_tau on the batched branches: the JAX package applies its torque "
-                "injection only on the per-env branch and ignores it here (ROADMAP queue 3)")
         np_cfg = config.obs.get("noise_process")
         self.noise_process = np_cfg if np_cfg and bool(np_cfg.get("enable", False)) else None
 
@@ -177,7 +174,8 @@ class MotionTrackingEnv:
                           pair_cap=int(sim_cfg.get("pair_cap", 4)),
                           warm_start=bool(sim_cfg.get("warm_start", True)),
                           pos_iters=int(sim_cfg.get("pos_iters", 8)),
-                          contact_matvec_dtype=str(sim_cfg.get("contact_matvec_dtype", "float32"))),
+                          contact_matvec_dtype=str(sim_cfg.get("contact_matvec_dtype", "float32")),
+                          lanes_contact_kernel=str(sim_cfg.get("lanes_contact_kernel", "auto"))),
             device=self.device)
         self.lanes_engine = self.engine.lanes() if self.solver == "lanes" else None
 
@@ -600,7 +598,10 @@ class MotionTrackingEnv:
         rao = bool(dr.get("use_rao", False))
         rfi_scale = float(dr.rfi_lim) * state.rfi_lim_scale * self.torque_limits if rfi else None
         rao_tau = state.rao_scale * self.torque_limits if rao else None
-        if self.use_pstau:
+        # JAX's lanes and env-first torque functions leave the injection out
+        # (`tracking_env.py:860-889`)
+        inject = self.use_pstau and self.physics == "per_env"
+        if inject:
             pstau = dr.parallel_serial_tau
             pst_idx = torch.as_tensor(np.asarray(list(pstau.joint_idx), dtype=np.int64), device=self.device)
             pst_scale = float(pstau.rfi_lim) * self.torque_limits[pst_idx]
@@ -610,7 +611,7 @@ class MotionTrackingEnv:
             if rfi:
                 noise = 2.0 * torch.rand(tau.shape, generator=self.gen, device=self.device) - 1.0
                 tau = tau + noise * rfi_scale
-            if self.use_pstau:
+            if inject:
                 g = torch.randn((tau.shape[0], len(pst_idx)), generator=self.gen, device=self.device)
                 tau = tau.index_add(1, pst_idx, pst_scale * g)
             if rao:

@@ -1,11 +1,14 @@
 """Time the two APGD contact kernels on the card, against their plain
 versions, their bounds and, optionally, another build of the same kernels.
+Kernel 1 is timed in each matvec mode (`apgd_lanes` in float32,
+`apgd_lanes_bf16`, `apgd_lanes_f16`: `contact_matvec_dtype` bfloat16 and
+float16), each against the plain version in the same mode.
 
     python -m pbhc_tpu_torch.eval.kernel_bench [rows=12,38] [num_envs=4096] [iters=16]
         [reps=50] [envs=4,8,16] [parts=1,2,4] [old=<dir>]
 
 For each kernel and row count R it prints one JSON line: the kernel's max
-abs error against its plain version, its time per launch over `reps`
+and mean abs error against its plain version, its time per launch over `reps`
 launches back to back after a warm-up (`ms`, CUDA events; the host's launch
 cost shows there when it exceeds the kernel's), its device time per launch
 (`ms_device`, from a `torch.profiler` trace of `reps` launches), the plain
@@ -14,7 +17,8 @@ version's time (CUDA events) and the bound.
 `old=` is the A/B step of a kernel redesign: it names a directory holding
 an earlier design's `apgd_lanes.cu` and `apgd_envfirst.cu` with the same C
 launch functions (an earlier commit's `pbhc_tpu_torch/csrc/`, unpacked with
-`git archive` under `build/`, which git ignores). They are built into
+`git archive` under `build/`, which git ignores; the reduced modes only
+against a design that has `apgd_lanes_launch_mode`). They are built into
 `build/kernels/` and timed in turns with the current design, in the order
 earlier, current, current, earlier; both through the bare launch function.
 `envs=` and `parts=` also time the current design at each tile of the
@@ -24,7 +28,9 @@ Needs a CUDA card.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import json
 import shutil
 import subprocess
@@ -101,7 +107,8 @@ def _ops(R, N, iters):
 
 def apgd_bound_ms(R, N, iters):
     """Kernel 1: A, b, mu, active and x0 read once, the impulses written once,
-    over the memory rate, or its f32 operations over the f32 rate."""
+    over the memory rate, or its f32 operations over the f32 rate. The same
+    in every matvec mode: A arrives in f32 and is read once either way."""
     n = 3 * R
     return _bound(4 * N * (n * n + n + 1 + R + n + n), _ops(R, N, iters))
 
@@ -139,28 +146,46 @@ def envfirst_problem(R, N, dev, seed):
     return A, b, mu, active
 
 
-# kernel name -> (wrapper, the same at a chosen tile, plain version,
-# problem, bound, count of input pointers before `out` in its launch function)
+# One kernel (and matvec mode) to time: its wrapper, the same at a chosen
+# tile, the plain version, the problem and the bound; `symbol`, the prefix of
+# its C functions; `n_in`, the input pointers before `out` in its launch
+# function; `mode`, the matvec dtype.
+Kernel = collections.namedtuple("Kernel", "wrapper at_tile plain problem bound symbol n_in mode")
+
+
+def _lanes_mode(mode):
+    """Kernel 1 in matvec mode `mode`."""
+    part = lambda fn: functools.partial(fn, mv_dtype=mode)
+    return Kernel(part(ck.apgd_lanes), part(ck.apgd_lanes_at_tile), part(ck.apgd_lanes_plain), lanes_problem,
+                  apgd_bound_ms, "apgd_lanes", 5, mode)
+
+
 KERNELS = {
-    "apgd_lanes": (ck.apgd_lanes, ck.apgd_lanes_at_tile, ck.apgd_lanes_plain, lanes_problem, apgd_bound_ms, 5),
-    "apgd_envfirst": (ck.apgd_envfirst, ck.apgd_envfirst_at_tile, ck.apgd_envfirst_plain, envfirst_problem,
-                      envfirst_bound_ms, 4),
+    "apgd_lanes": _lanes_mode("float32"),
+    "apgd_lanes_bf16": _lanes_mode("bfloat16"),
+    "apgd_lanes_f16": _lanes_mode("float16"),
+    "apgd_envfirst": Kernel(ck.apgd_envfirst, ck.apgd_envfirst_at_tile, ck.apgd_envfirst_plain, envfirst_problem,
+                            envfirst_bound_ms, "apgd_envfirst", 4, "float32"),
 }
 
 
-def _launcher(lib, name, n_in, args, R, N, iters):
-    """A function that launches `lib`'s `<name>_launch` on `args` into a fresh
-    output and returns the output."""
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * (n_in + 1) + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+def _launcher(lib, k: Kernel, args, R, N, iters):
+    """A function that launches `lib`'s launch function of `k` (its
+    `<symbol>_launch`, or `<symbol>_launch_mode` in a reduced mode) on `args`
+    into a fresh output and returns the output."""
+    if k.mode == "float32":
+        fn, extra = getattr(lib, f"{k.symbol}_launch"), ()
+    else:
+        fn, extra = getattr(lib, f"{k.symbol}_launch_mode"), (ck.MV_MODES[k.mode], 0, 0)
+    fn.argtypes = [ctypes.c_void_p] * (k.n_in + 1) + [ctypes.c_int] * (3 + len(extra)) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty(args[1].shape, dtype=torch.float32, device=args[0].device)
 
     def run():
-        err = fn(*[t.data_ptr() for t in args], out.data_ptr(), R, N, iters,
+        err = fn(*[t.data_ptr() for t in args], out.data_ptr(), R, N, iters, *extra,
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:
-            raise RuntimeError(f"{name}: launch failed with code {err}")
+            raise RuntimeError(f"{k.symbol}: launch failed with code {err}")
         return out
     return run
 
@@ -174,53 +199,58 @@ def bench(rows=(12, 38), num_envs=4096, iters=16, reps=50, envs=(), parts=(), ol
     old_libs = {}
     if old:
         root = Path(old).resolve()
-        specs = [nvcc.CudaLibrary(f"earlier_{name}", (f"{name}.cu",), root=root) for name in KERNELS]
+        specs = [nvcc.CudaLibrary(f"earlier_{sym}", (f"{sym}.cu",), root=root) for sym in new_libs]
         nvcc.build(specs)
-        old_libs = {name: nvcc.load(spec) for name, spec in zip(KERNELS, specs)}
+        old_libs = {sym: nvcc.load(spec) for sym, spec in zip(new_libs, specs)}
     lines = []
-    for name, (wrapper, at_tile, plain, problem, bound, n_in) in KERNELS.items():
+    for name, k in KERNELS.items():
         for R in rows:
-            N, (E, P) = num_envs, ck.tile(name, R)
-            args = problem(R, N, dev, R)
-            ref = plain(*args, iters).reshape(args[1].shape)
-            line = {"kernel": name, "R": R, "N": N, "iters": iters, "E": E, "P": P}
+            N, (E, P) = num_envs, ck.tile(k.symbol, R, k.mode)
+            args = k.problem(R, N, dev, R)
+            ref = k.plain(*args, iters).reshape(args[1].shape)
+            line = {"kernel": name, "mode": k.mode, "R": R, "N": N, "iters": iters, "E": E, "P": P}
 
             def err_of(out):
                 return float((out.reshape(ref.shape) - ref).abs().max())
 
-            line["max_abs_err"] = err_of(wrapper(*args, iters))
-            runs = {"current": _launcher(new_libs[name], name, n_in, args, R, N, iters)}
-            if name in old_libs:
-                max_rows = getattr(old_libs[name], f"{name}_max_rows")()
+            out = k.wrapper(*args, iters).reshape(ref.shape)
+            line["max_abs_err"] = float((out - ref).abs().max())
+            line["mean_abs_err"] = float((out - ref).abs().mean())
+            runs = {"current": _launcher(new_libs[k.symbol], k, args, R, N, iters)}
+            earlier = old_libs.get(k.symbol)
+            if earlier is not None and k.mode != "float32" and not hasattr(earlier, f"{k.symbol}_launch_mode"):
+                line["earlier_ms"] = "has no reduced matvec modes"
+            elif earlier is not None:
+                max_rows = getattr(earlier, f"{k.symbol}_max_rows")()
                 if R <= max_rows:
-                    runs["earlier"] = _launcher(old_libs[name], name, n_in, args, R, N, iters)
+                    runs["earlier"] = _launcher(earlier, k, args, R, N, iters)
                     line["earlier_max_abs_err"] = err_of(runs["earlier"]())
                 else:
                     line["earlier_ms"] = f"refuses R > {max_rows}"
             order = ["earlier", "current", "current", "earlier"] if "earlier" in runs else ["current", "current"]
-            events = {k: [] for k in runs}
-            device = {k: [] for k in runs}
-            for k in order:
-                events[k].append(cuda_ms(runs[k], reps))
-                device[k].append(device_ms(runs[k], reps, name))
+            events = {key: [] for key in runs}
+            device = {key: [] for key in runs}
+            for key in order:
+                events[key].append(cuda_ms(runs[key], reps))
+                device[key].append(device_ms(runs[key], reps, k.symbol))
             line["ms_turns"], line["ms_device_turns"] = events, device
-            for k, prefix in (("current", ""), ("earlier", "earlier_")):
-                if k in runs:
-                    line[f"{prefix}ms"] = sum(events[k]) / len(events[k])
-                    line[f"{prefix}ms_device"] = sum(device[k]) / len(device[k])
+            for key, prefix in (("current", ""), ("earlier", "earlier_")):
+                if key in runs:
+                    line[f"{prefix}ms"] = sum(events[key]) / len(events[key])
+                    line[f"{prefix}ms_device"] = sum(device[key]) / len(device[key])
             for e_ in envs or (E,):
                 for p_ in parts or (P,):
                     if (e_, p_) == (E, P):
                         continue
-                    run = lambda e_=e_, p_=p_: at_tile(*args, iters, e_, p_)
+                    run = lambda e_=e_, p_=p_: k.at_tile(*args, iters, e_, p_)
                     try:
                         err = err_of(run())
                     except ValueError:  # a tile the kernel does not take at this R
                         continue
                     line.setdefault("err_by_tile", {})[f"E{e_}P{p_}"] = err
-                    line.setdefault("ms_device_by_tile", {})[f"E{e_}P{p_}"] = device_ms(run, reps, name)
-            line["plain_ms"] = cuda_ms(lambda: plain(*args, iters), max(1, reps // 5))
-            line["bound_ms"], line["bound_by"] = bound(R, N, iters)
+                    line.setdefault("ms_device_by_tile", {})[f"E{e_}P{p_}"] = device_ms(run, reps, k.symbol)
+            line["plain_ms"] = cuda_ms(lambda: k.plain(*args, iters), max(1, reps // 5))
+            line["bound_ms"], line["bound_by"] = k.bound(R, N, iters)
             lines.append(line)
             del args, ref
             torch.cuda.empty_cache()

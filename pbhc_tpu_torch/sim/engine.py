@@ -32,7 +32,7 @@ import torch
 from pbhc_tpu_torch.maths import rotations as rot
 from pbhc_tpu_torch.model import kinematics as kin
 from pbhc_tpu_torch.model.mjcf import RobotModel
-from pbhc_tpu_torch.sim.contact_kernel import apgd_envfirst
+from pbhc_tpu_torch.sim.contact_kernel import MV_MODES, apgd_envfirst
 
 GRAVITY = 9.81
 
@@ -93,12 +93,13 @@ class EngineOptions:
     "pallas", else PGS, as in JAX), `relaxation` and `contact_reg` serve only
     the per-env solve; the env picks the engine from its own `solver` key.
 
-    There is no `lanes_contact_kernel`: in the JAX package that key picks the
-    Pallas kernel or the XLA scan, two implementations of one function (and
-    its default differs between `tracking_env.py:130` and `engine.py:148`).
-    The port has one implementation per device, the CUDA kernel for CUDA
-    tensors and its plain version for CPU tensors, so it accepts every value
-    of the key in a run config and reads none."""
+    `contact_matvec_dtype` (float32, bfloat16 or float16) and
+    `lanes_contact_kernel` (xla, pallas or auto) serve the lanes engine and
+    are read as JAX reads them (`engine_lanes.py:583-624`): the position pass
+    runs its matvec in the dtype, and so does the contact solve, except where
+    JAX would send it to the Pallas kernel, which computes in float32 (N a
+    multiple of 128 and the key `pallas`, or `auto` off the CPU). The solve
+    is kernel 1 on a CUDA device either way, in the matching mode."""
 
     dt: float = 1.0 / 200.0
     solver: str = "apgd"
@@ -120,6 +121,12 @@ class EngineOptions:
     pair_cap: int = 4
     warm_start: bool = True
     contact_matvec_dtype: str = "float32"
+    lanes_contact_kernel: str = "xla"
+
+    def __post_init__(self):
+        if self.contact_matvec_dtype not in MV_MODES:
+            raise ValueError(f"contact_matvec_dtype={self.contact_matvec_dtype!r}: "
+                             f"takes one of {', '.join(MV_MODES)}")
 
 
 def active_set_indices(opt: EngineOptions, K: int, P: int, phi: torch.Tensor):

@@ -8,7 +8,9 @@ RNEA bias in root-anchored world-axis spatial coordinates (f32 relies on that
 anchoring), a branch-sparse Cholesky SPD inverse, contact Jacobians with
 class-budgeted active-set rows, the APGD contact solve (kernel 1,
 `sim/contact_kernel.py`), the energy safeguard, the split-impulse position
-pass and semi-implicit Euler.
+pass and semi-implicit Euler. `contact_matvec_dtype` and
+`lanes_contact_kernel` are read as JAX reads them (`engine_lanes.py:583-624`;
+see `EngineOptions`).
 
 Two deliberate differences in form, not in value: small products the JAX
 module scalarises for TPU tiles are written as broadcast tensor ops, and the
@@ -24,7 +26,7 @@ import torch
 
 from pbhc_tpu_torch.maths import rotations as rot
 from pbhc_tpu_torch.model.kinematics import _level_order
-from pbhc_tpu_torch.sim.contact_kernel import apgd_lanes
+from pbhc_tpu_torch.sim.contact_kernel import apgd_lanes, matvec_plain, round_to
 from pbhc_tpu_torch.sim.engine import GRAVITY, Engine, SimParams, SimState, active_set_indices
 
 
@@ -102,10 +104,6 @@ class LanesEngine:
     (`engine_lanes.py:149`)."""
 
     def __init__(self, engine: Engine):
-        if engine.opt.contact_matvec_dtype != "float32":
-            raise NotImplementedError(
-                f"contact_matvec_dtype={engine.opt.contact_matvec_dtype!r}: the port "
-                "solves contacts in float32 only")
         self.e = engine
         self.opt = engine.opt
         # the contact solve: kernel 1's wrapper (launches the CUDA kernel for
@@ -444,8 +442,8 @@ class LanesEngine:
         b[:, 2] += paramsT["restitution"][None] * torch.clamp(v0[:, 2], max=0.0)
         b = b.reshape(R * 3, N)
 
-        lam = self.contact_solve(A, b, paramsT["friction"], active,
-                                 lam_cf.reshape(R * 3, N).contiguous(), iters=opt.solver_iters)
+        lam = self.contact_solve(A, b, paramsT["friction"], active, lam_cf.reshape(R * 3, N).contiguous(),
+                                 iters=opt.solver_iters, mv_dtype=self.solve_dtype(N))
 
         # energy safeguard (`engine_lanes.py:595-601`)
         qv = torch.sum(A * lam[None], dim=1)
@@ -457,7 +455,8 @@ class LanesEngine:
         imp = torch.sum(Jf * lam[:, None], dim=0)
         u_new = u_plus + torch.sum(M_inv * imp[None], dim=1)
 
-        # split-impulse position pass (`engine_lanes.py:606-628`)
+        # split-impulse position pass (`engine_lanes.py:606-628`), its matvec
+        # in `contact_matvec_dtype` on every branch, plain PyTorch as JAX's is XLA
         b_err = -opt.baumgarte / opt.dt * torch.clamp(phi + opt.penetration_slop, max=0.0)
         b_err = torch.clamp(b_err, max=opt.max_depenetration_velocity)
         act3 = torch.repeat_interleave(active, 3, dim=0)
@@ -467,8 +466,9 @@ class LanesEngine:
         cp[:, 2] = b_err * active
         cp = cp.reshape(R * 3, N)
         lam_p = torch.zeros((R * 3, N), device=dev)
+        A_mv = round_to(A, opt.contact_matvec_dtype)
         for _ in range(opt.pos_iters):
-            g = torch.sum(A * lam_p[None], dim=1) - cp
+            g = matvec_plain(A_mv, lam_p, opt.contact_matvec_dtype) - cp
             x3 = (lam_p - inv_Lp[None] * g).reshape(R, 3, N)
             nxt = torch.zeros_like(x3)
             nxt[:, 2] = torch.clamp(x3[:, 2], min=0.0) * active
@@ -483,6 +483,17 @@ class LanesEngine:
             world = torch.stack([sum(C[a][b] * lam3[K:, a] for a in range(3)) for b in range(3)], dim=1)
             lam3 = torch.cat([lam3[:K], world], dim=0)
         return self._integrate(stateT, u_new, dpos), lam3
+
+    def solve_dtype(self, N: int) -> str:
+        """The matvec dtype of the contact solve at N envs, as JAX picks its
+        solve (`engine_lanes.py:583-591`): float32 where JAX runs the Pallas
+        kernel, which ignores the dtype (N a multiple of 128 and the key
+        `pallas`, or `auto` off the CPU: JAX reads `auto` by its backend,
+        which on a card would not be the CPU), else the XLA `_apgd` in
+        `contact_matvec_dtype`."""
+        kernel = self.opt.lanes_contact_kernel
+        pallas = N % 128 == 0 and (kernel == "pallas" or (kernel == "auto" and self.device.type != "cpu"))
+        return "float32" if pallas else self.opt.contact_matvec_dtype
 
     def _integrate(self, stateT, u_new, dpos=None):
         """Semi-implicit Euler + caps + hard joint limits (`engine_lanes.py:684`)."""

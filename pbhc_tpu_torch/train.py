@@ -22,8 +22,10 @@ writes a run directory `<base_dir>/<project_name>/<time>-<experiment>-<task>/`
 holding the composed config as `config.json` (which the port's evaluation
 reads) and as `config.yaml` (which `pbhc_tpu`'s evaluation reads), the
 console output tee'd into `train.log`, the logged scalars as JSON lines in
-`scalars.jsonl` (the keys the JAX CLI sends to TensorBoard), and the
-checkpoints `ckpt/model_<it>.pkl` (flax-layout params, which `pbhc_tpu`
+`scalars.jsonl` and, where `torch.utils.tensorboard` imports, as a
+TensorBoard event file with the JAX CLI's tags and steps (every logged key
+and `Perf/total_fps` at iteration it + 1, `pbhc_tpu/train.py:287-290`), and
+the checkpoints `ckpt/model_<it>.pkl` (flax-layout params, which `pbhc_tpu`
 loads too, plus the optimizer state), saved every `save_interval`
 iterations and at the end, each with a params-only mirror in
 `<artifact_dir>/<experiment>/ckpt/` (default `artifacts/`, under pytest a
@@ -46,8 +48,14 @@ all of them, and check after each iteration that their replicated state is
 bit-identical. Rank 0 alone writes the run directory and prints; its
 checkpoints have the one-rank layout. `fps` counts every rank's env-steps.
 
-Not ported: TensorBoard, wandb and the hung-device watchdog (a remote-TPU
-guard).
+`use_wandb=true` starts wandb with `sync_tensorboard` (project, group,
+entity and id from the `wandb` group, `opt=wandb`) as the JAX CLI does
+(`pbhc_tpu/train.py:214-228`); where wandb is missing or does not start, it
+prints the JAX CLI's line `[train] use_wandb=true but wandb unavailable
+(...); TB only` and trains on. Neither wandb nor TensorBoard is on the card's
+machine: there the run logs `scalars.jsonl` alone.
+
+Not ported: the hung-device watchdog (a remote-TPU guard).
 """
 from __future__ import annotations
 
@@ -91,8 +99,6 @@ def build(cfg, shard: EnvShard | None = None):
     algo_cls = ALGOS.get((cfg.env.target, cfg.algo.target))
     if algo_cls is None:
         raise NotImplementedError(f"{cfg.env.target} with {cfg.algo.target} is not ported")
-    if cfg.get("use_wandb"):
-        raise NotImplementedError("use_wandb: wandb logging is not ported")
     seed, device = int(cfg.seed), cfg.get("device", "cuda")
     shard = EnvShard(int(cfg.num_envs)) if shard is None else shard
     if shard.distributed:
@@ -154,6 +160,34 @@ def _tee(path):
             yield
         finally:
             sys.stdout, sys.stderr = out, err
+
+
+def _summary_writer(exp_dir):
+    """A TensorBoard writer on the run directory where
+    `torch.utils.tensorboard` imports (`pbhc_tpu/train.py:207-212`), else None."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(log_dir=str(exp_dir))
+
+
+def _wandb_run(cfg, exp_dir, say):
+    """The wandb run of `use_wandb=true` (`pbhc_tpu/train.py:214-228`), or
+    None: without the option, or, with JAX's line, where wandb is missing or
+    does not start (a machine without network)."""
+    if not bool(cfg.get("use_wandb", False)):
+        return None
+    try:
+        import wandb
+
+        wcfg = dict(cfg.get("wandb", {}))
+        return wandb.init(project=wcfg.get("wandb_project", "PBHC_TPU"), group=wcfg.get("wandb_group"),
+                          entity=wcfg.get("wandb_entity"), id=wcfg.get("wandb_id"), dir=str(exp_dir),
+                          sync_tensorboard=True, config=dict(cfg))
+    except Exception as e:  # as JAX: any failure to start degrades to TensorBoard alone
+        say(f"[train] use_wandb=true but wandb unavailable ({e}); TB only")
+        return None
 
 
 def _sync(device):
@@ -256,7 +290,17 @@ def _run(cfg, shard, exp_dir, config_json, config_yaml):
 
     t_start = time.time()
     last_log_t, last_log_it = t_start, 0
-    with open(exp_dir / "scalars.jsonl", "a") if exp_dir is not None else contextlib.nullcontext() as scalars:
+    with contextlib.ExitStack() as logs_open:
+        scalars = writer = None
+        if exp_dir is not None:
+            scalars = logs_open.enter_context(open(exp_dir / "scalars.jsonl", "a"))
+            # wandb first: its `sync_tensorboard` mirrors the writers made after it
+            run = _wandb_run(cfg, exp_dir, say)
+            if run is not None:
+                logs_open.callback(run.finish)
+            writer = _summary_writer(exp_dir)
+            if writer is not None:
+                logs_open.callback(writer.close)
         for it in range(num_iters):
             t0 = time.time()
             if it == 2:
@@ -291,6 +335,10 @@ def _run(cfg, shard, exp_dir, config_json, config_yaml):
                 if scalars is not None:
                     scalars.write(json.dumps({"iteration": ts.iteration, **log, "Perf/total_fps": fps}) + "\n")
                     scalars.flush()
+                if writer is not None:
+                    for k, v in log.items():
+                        writer.add_scalar(k, v, it + 1)
+                    writer.add_scalar("Perf/total_fps", fps, it + 1)
                 terr = (f" terrain_level_mean={log['Env/terrain_level_mean']:.2f}"
                         f"/max={log['Env/terrain_level_max']:.0f}"
                         if "Env/terrain_level_mean" in log else "")

@@ -7,6 +7,12 @@ Without a card every test here skips.
 
 Tolerance atol 1e-4 (the repo's kernel-parity bound): the kernel and the plain
 version sum the matvecs in different orders and the kernel fuses multiply-adds.
+Kernel 1's reduced matvec modes (bfloat16, float16) against the plain version
+in the same mode: max abs 1e-2 and mean abs 3e-6 (MV_ATOL, MV_MEAN_ATOL;
+chip_smoke.py states them): a one-ulp difference of the two f32 momentum
+points can round y to the neighbouring bfloat16 / float16 value, which moves
+a few impulses by up to ~1.5e-3 (one flip at most about a bfloat16 ulp of
+the largest |y|, 2.3e-2), while another product rule moves every impulse.
 The KungfuBot2 networks (Conv1d through cuDNN, the flax-numerics LayerNorm,
 the MLPs) on the card against the CPU, TF32 off for matmul and cuDNN: 1e-5
 per unit of each output's largest magnitude (the two devices sum products in
@@ -23,6 +29,7 @@ import torch
 from pbhc_tpu_torch.sim import contact_kernel as ck
 
 ATOL = 1e-4
+MV_ATOL, MV_MEAN_ATOL = 1e-2, 3e-6
 
 
 @pytest.fixture
@@ -60,6 +67,28 @@ def test_kernel_matches_plain(cuda_device, R, N, iters):
     assert ck.apgd_lanes.launches == before + 1
     assert torch.isfinite(out).all()
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mv_dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("R,N", [(12, 4096), (38, 4096), (21, 1001)])
+def test_reduced_modes_match_plain(cuda_device, mv_dtype, R, N):
+    """Kernel 1's bfloat16 and float16 matvec modes at the paths' row counts
+    (R = 12, 38) and a ragged shape; each launch counted in its mode, and
+    the result a reduced-precision one (far from the float32 solve)."""
+    args = _problem(R, N, R + N, cuda_device)
+    before, in_mode = ck.apgd_lanes.launches, ck.apgd_lanes.mode_launches[mv_dtype]
+    out = ck.apgd_lanes(*args, iters=16, mv_dtype=mv_dtype)
+    ref = ck.apgd_lanes_plain(*args, iters=16, mv_dtype=mv_dtype)
+    f32 = ck.apgd_lanes_plain(*args, iters=16)
+    torch.cuda.synchronize()
+    assert ck.apgd_lanes.launches == before + 1 and ck.apgd_lanes.mode_launches[mv_dtype] == in_mode + 1
+    assert torch.isfinite(out).all()
+    diff = (out - ref).abs()
+    assert float(diff.max()) <= MV_ATOL and float(diff.mean()) <= MV_MEAN_ATOL, (float(diff.max()),
+                                                                                 float(diff.mean()))
+    assert float((out - f32).abs().mean()) > 3 * MV_MEAN_ATOL
+    assert ck.tile("apgd_lanes", R, mv_dtype) == ck.tile("apgd_lanes", R)
 
 
 @pytest.mark.cuda
@@ -163,9 +192,9 @@ def test_kernel_matches_plain_on_29dof_contacts(cuda_device):
     seen = []
     lanes = env.lanes_engine
 
-    def record(A, b, mu, active, x0, iters):
+    def record(A, b, mu, active, x0, iters, mv_dtype="float32"):
         seen.append((A.clone(), b.clone(), mu.clone(), active.clone(), x0.clone(), iters))
-        return ck.apgd_lanes(A, b, mu, active, x0, iters)
+        return ck.apgd_lanes(A, b, mu, active, x0, iters, mv_dtype)
 
     lanes.contact_solve = record
     with torch.no_grad():
@@ -197,9 +226,9 @@ def test_kernel_matches_plain_on_heightfield_contacts(cuda_device):
     seen = []
     lanes = env.lanes_engine
 
-    def record(A, b, mu, active, x0, iters):
+    def record(A, b, mu, active, x0, iters, mv_dtype="float32"):
         seen.append((A.clone(), b.clone(), mu.clone(), active.clone(), x0.clone(), iters))
-        return ck.apgd_lanes(A, b, mu, active, x0, iters)
+        return ck.apgd_lanes(A, b, mu, active, x0, iters, mv_dtype)
 
     lanes.contact_solve = record
     with torch.no_grad():

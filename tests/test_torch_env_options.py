@@ -1,8 +1,9 @@
 """Port parity: the tracking env's options that no committed run turns on —
 soft dynamic correction (SDC) on the lanes and the per-env branches, the OU
 observation-noise process, the probabilistic close-to-limit terminations,
-`parallel_serial_tau` on the per-env branch — and the MPPI snapshots and
-`obs_key_slices`, against `pbhc_tpu` on the CPU.
+`parallel_serial_tau` on the per-env branch and on the lanes and env-first
+batched branches (N = 128; JAX's Pallas kernel in interpret mode) — and the
+MPPI snapshots and `obs_key_slices`, against `pbhc_tpu` on the CPU.
 
 The envs are `bench.py`'s v1 training composition with the randomness of
 tests/test_torch_env.py switched off, N = 32, under random actions. What is
@@ -10,7 +11,8 @@ random in these features is made deterministic or shared: SDC `deter` (and
 `prob` at alpha 1, where the gate always opens), the terminations at
 probability 1 and 0, the OU process's normal draws taken from JAX's key and
 injected into the port, `parallel_serial_tau` with zero limits (its torque
-draw itself is held to its joints in a separate check).
+draw itself is held to its joints in a separate check) or, on the batched
+branches, where neither package draws a torque, with a zero `rao` bump.
 
 Tolerances: tests/test_torch_env.py's `SIM_TOL`, with the root and body
 rotations at 4e-4 under SDC (it slerps the root every substep, and the
@@ -32,6 +34,7 @@ import torch
 
 torch.set_num_threads(2)
 
+import pbhc_tpu.sim.pallas_contact as pc  # noqa: E402
 from pbhc_tpu.config.loader import compose as jax_compose  # noqa: E402
 from pbhc_tpu.envs.tracking_env import MotionTrackingEnv as JaxEnv  # noqa: E402
 from pbhc_tpu.utils import noise_tool as jax_noise  # noqa: E402
@@ -241,10 +244,17 @@ def test_close_to_limit_terminations_never_fire_at_probability_0():
         assert all(float(info["log"][f"terminate_by_{k}"]) == 0.0 for k in TERMINATIONS)
 
 
+def _pd_torques(env, state):
+    """`env`'s torque function at `state` towards the default pose + 0.1."""
+    target = state.default_dof_pos + 0.1
+    kp, kd = state.kp_scale * env.p_gains, state.kd_scale * env.d_gains
+    return env._torque_fn(state, target, kp, kd)(state.sim)
+
+
 def test_parallel_serial_tau_on_the_per_env_branch():
     """`parallel_serial_tau` runs on the per-env branch (with zero limits the
-    parity holds exactly as without it), its torque draw lands on its joints
-    only, and the batched branches refuse it."""
+    parity holds exactly as without it) and its torque draw lands on its
+    joints only."""
     pst = ["domain_rand.parallel_serial_tau.enable=true", "domain_rand.parallel_serial_tau.rao_lim=0.0",
            "domain_rand.parallel_serial_tau.rfi_lim=0.0"]
     jenv, js, tenv, ts = _envs(pst + ["simulator.config.solver=apgd"])
@@ -254,16 +264,37 @@ def test_parallel_serial_tau_on_the_per_env_branch():
     env = MotionTrackingEnv(compose(SELS, BASE + ["simulator.config.solver=apgd",
                                                   "domain_rand.parallel_serial_tau.enable=true"]), N, device="cpu")
     state = env.reset_to_start(env.init_state())
-    target = state.default_dof_pos + 0.1
-    kp, kd = state.kp_scale * env.p_gains, state.kd_scale * env.d_gains
-    tau = env._torque_fn(state, target, kp, kd)(state.sim)
+    tau = _pd_torques(env, state)
     env.use_pstau = False
-    plain = env._torque_fn(state, target, kp, kd)(state.sim)
+    plain = _pd_torques(env, state)
     moved = (tau != plain).any(0).nonzero()[:, 0].tolist()
     assert moved == list(env.dr.parallel_serial_tau.joint_idx)
-    with pytest.raises(NotImplementedError, match="per-env branch"):
-        MotionTrackingEnv(compose(SELS, BASE + ["simulator.config.solver=lanes",
-                                                "domain_rand.parallel_serial_tau.enable=true"]), N, device="cpu")
+
+
+@pytest.mark.parametrize("solver,physics", [("lanes", "lanes"), ("pallas", "batched")])
+def test_parallel_serial_tau_on_the_batched_branches(monkeypatch, solver, physics):
+    """`parallel_serial_tau` on the lanes and env-first batched branches at
+    N = 128, held in lockstep against JAX, which runs it there without its
+    torque injection: with its `rfi_lim` at the default 0.02 and a zero
+    `rao` bump the two stay together, which an injection on either side
+    would break. The port's lanes torque equals its torque without the
+    option, its `rao` bump (default limits) lands on the option's joints."""
+    orig = pc.solve_contacts_pallas
+    monkeypatch.setattr(pc, "solve_contacts_pallas",
+                        lambda A, b, mu, active, iters=32, interpret=False: orig(A, b, mu, active, iters, True))
+    pst = ["domain_rand.parallel_serial_tau.enable=true", f"simulator.config.solver={solver}"]
+    jenv, js, tenv, ts = _envs(pst + ["domain_rand.parallel_serial_tau.rao_lim=0.0"], n=128)
+    assert tenv.use_pstau and tenv.physics == physics
+    _lockstep(jenv, js, tenv, ts, 3)
+
+    env = MotionTrackingEnv(compose(SELS, BASE + pst), 128, device="cpu")
+    assert env.physics == physics
+    state = env.reset_to_start(env.init_state())
+    tau = _pd_torques(env, state)
+    env.use_pstau = False
+    assert torch.equal(tau, _pd_torques(env, state))
+    bumped = (state.rao_scale != 0).any(0).nonzero()[:, 0].tolist()
+    assert bumped == list(env.dr.parallel_serial_tau.joint_idx)
 
 
 def test_mppi_snapshot_round_trip():

@@ -1,15 +1,16 @@
 """The port runs where only torch, numpy, scipy and the standard library are.
 
 The machine with the card has no JAX, PyYAML, joblib, lxml, MuJoCo,
-TensorBoard, matplotlib or rerun. A subprocess that blocks those modules
-(and `pbhc_tpu`) imports
+TensorBoard, wandb, matplotlib or rerun. A subprocess that blocks those
+modules (and `pbhc_tpu`, and `torch.utils.tensorboard`) imports
 every module of `pbhc_tpu_torch` and `chip_smoke`, builds the side-kick env
 and actor on the CPU at 128 envs from the config snapshot and the checkpoint,
 drives a few control steps of the serving loop, does the same for the
 KungfuBot2 teacher (`GeneralTrackingEnv`, `MimicActorCritic`) at 32 envs
 and for the heightfield-terrain run `terrain_walk_v3` at 16 envs, runs the
 training CLI (`python -m pbhc_tpu_torch.train`) for one iteration: MHPPO at
-128 envs, a KungfuBot2 student distilled from the committed teacher (its
+128 envs with `use_wandb=true` (it prints the JAX CLI's line and trains with
+`scalars.jsonl` alone), a KungfuBot2 student distilled from the committed teacher (its
 config read from the snapshot) at 32 envs, a KungfuBot2 teacher with MoE
 backbones and a phase-aware MHPPO run at 16 envs, steps the v1 env at 16
 envs on the per-env engine (`pgs`; `apgd` with soft dynamic correction; the
@@ -28,9 +29,11 @@ contact-mask CLI, a short retarget fit of the side-kick's SMPL joints, and
 the viewers, whose drawing libraries raise there.
 
 `mujoco` may be imported only inside functions of the seven port modules of
-the MuJoCo side (`MUJOCO_MODULES`), and matplotlib and rerun only inside
-functions of the viewers (`VIS_MODULES`), so that every module imports on the
-card's machine; a top-level import of either anywhere fails the source check.
+the MuJoCo side (`MUJOCO_MODULES`), matplotlib and rerun only inside
+functions of the viewers (`VIS_MODULES`), and wandb and
+`torch.utils.tensorboard` only inside functions of the training CLI, so that
+every module imports on the card's machine; a top-level import of any of
+them anywhere fails the source check.
 """
 import ast
 import subprocess
@@ -40,7 +43,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pbhc_tpu", "yaml", "joblib", "lxml", "mujoco",
-           "tensorboard", "matplotlib", "mpl_toolkits", "rerun")
+           "tensorboard", "wandb", "matplotlib", "mpl_toolkits", "rerun")
+# blocked modules of packages that are there (torch's TensorBoard writer)
+BLOCKED_SUBMODULES = ("torch.utils.tensorboard",)
 # the MuJoCo side of the deploy and eval stack: the only modules that may
 # import `mujoco`, and only inside a function
 MUJOCO_MODULES = {"pbhc_tpu_torch/deploy/mujoco_runtime.py", "pbhc_tpu_torch/deploy/urci.py",
@@ -51,8 +56,10 @@ MUJOCO_MODULES = {"pbhc_tpu_torch/deploy/mujoco_runtime.py", "pbhc_tpu_torch/dep
 # inside a function
 VIS_MODULES = {"pbhc_tpu_torch/vis/vis_motion.py", "pbhc_tpu_torch/vis/vis_rr.py",
                "pbhc_tpu_torch/vis/vis_smpl.py"}
+# the training CLI's optional loggers: the only module that may import them
+TRAIN_CLI = {"pbhc_tpu_torch/train.py"}
 SCOPED = {"mujoco": MUJOCO_MODULES, "matplotlib": VIS_MODULES, "mpl_toolkits": VIS_MODULES,
-          "rerun": VIS_MODULES}
+          "rerun": VIS_MODULES, "wandb": TRAIN_CLI, "torch.utils.tensorboard": TRAIN_CLI}
 
 SCRIPT = textwrap.dedent("""
     import sys
@@ -60,7 +67,7 @@ SCRIPT = textwrap.dedent("""
     for name in list(sys.modules):
         if name.split(".")[0] in BLOCKED:
             del sys.modules[name]
-    for name in BLOCKED:
+    for name in BLOCKED + {blocked_sub!r}:
         sys.modules[name] = None          # any import of it raises ImportError
     sys.path.insert(0, {repo!r})
 
@@ -104,7 +111,7 @@ SCRIPT = textwrap.dedent("""
                 "rewards=motion_tracking", "domain_rand=main", "simulator=tpu", "num_envs=128",
                 "robot.motion.motion_file=assets/motions/Horse-stance_punch.pkl",
                 "algo.config.num_learning_iterations=1", "device=cpu", "base_dir={base_dir}",
-                "artifact_dir={base_dir}/art"]
+                "artifact_dir={base_dir}/art", "use_wandb=true"]
     runpy.run_module("pbhc_tpu_torch.train", run_name="__main__")
     sys.argv = ["pbhc_tpu_torch.train", "exp=general_tracking", "robot=g1_23dof_student",
                 "obs=general_tracking_student", "rewards=general_tracking", "domain_rand=main",
@@ -209,30 +216,34 @@ SCRIPT = textwrap.dedent("""
     eps, env, detail = benchmarks._env_throughput(
         benchmarks.V1, ["robot.motion.motion_file=" + benchmarks.WALK], 8, 2, "cpu")
     assert eps > 0 and all(np.isfinite(detail["reward_sums"]))
-    leaked = [n for n, m in sys.modules.items() if n.split(".")[0] in BLOCKED and m is not None]
+    leaked = [n for n, m in sys.modules.items() if m is not None and (
+        n.split(".")[0] in BLOCKED or n.startswith({blocked_sub!r}))]
     assert not leaked, leaked
     print("modules", len(names), "ISOLATION OK")
 """)
 
 
 def test_port_runs_without_jax_yaml_joblib_lxml(tmp_path):
-    script = SCRIPT.format(blocked=BLOCKED, repo=str(REPO), base_dir=str(tmp_path))
+    script = SCRIPT.format(blocked=BLOCKED, blocked_sub=BLOCKED_SUBMODULES, repo=str(REPO), base_dir=str(tmp_path))
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
                          timeout=600)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "ISOLATION OK" in out.stdout
     assert out.stdout.count("[it 1/1]") == 4 and len(list(tmp_path.glob("PBHC_TPU/*/ckpt/model_1.pkl"))) == 4
+    assert out.stdout.count("[train] use_wandb=true but wandb unavailable (") == 1
+    assert not list(tmp_path.glob("PBHC_TPU/*/events.out.tfevents.*"))
 
 
 def _imports(path):
-    """(root module, inside a function) for every absolute import of `path`."""
+    """(module, inside a function) for every absolute import of `path`: the
+    imported module's dotted name, for `from m import n` m.n."""
     out = []
 
     def visit(node, in_function):
         if isinstance(node, ast.Import):
-            out.extend((a.name.split(".")[0], in_function) for a in node.names)
+            out.extend((a.name, in_function) for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            out.append((node.module.split(".")[0], in_function))
+            out.extend((f"{node.module}.{a.name}", in_function) for a in node.names)
         in_function = in_function or isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
         for child in ast.iter_child_nodes(node):
             visit(child, in_function)
@@ -241,23 +252,29 @@ def _imports(path):
     return out
 
 
+def _scope(name):
+    """The key of SCOPED that the module `name` falls under, or None."""
+    return next((k for k in SCOPED if name == k or name.startswith(k + ".")), None)
+
+
 def test_no_forbidden_import_in_sources():
     files = sorted((REPO / "pbhc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
-    scoped_in = {root: set() for root in SCOPED}
+    scoped_in = {key: set() for key in SCOPED}
     for f in files:
         rel = f.relative_to(REPO).as_posix()
-        imports = _imports(f)
-        bad = {root for root, _ in imports if root in BLOCKED and root not in SCOPED}
-        assert not bad, f"{rel} imports {sorted(bad)}"
-        for root, in_function in imports:
-            if root in SCOPED:
-                assert rel in SCOPED[root], f"{rel} imports {root}: only {sorted(SCOPED[root])} may"
-                assert in_function, f"{rel} imports {root} at module level: import it inside the function"
-                scoped_in[root].add(rel)
+        for name, in_function in _imports(f):
+            scope = _scope(name)
+            if scope is None:
+                assert name.split(".")[0] not in BLOCKED, f"{rel} imports {name}"
+                continue
+            assert rel in SCOPED[scope], f"{rel} imports {name}: only {sorted(SCOPED[scope])} may"
+            assert in_function, f"{rel} imports {name} at module level: import it inside the function"
+            scoped_in[scope].add(rel)
     # the scoping is not vacuous: the runtimes that build MuJoCo models import
-    # it, and the viewers their drawing libraries
+    # it, the viewers their drawing libraries, the training CLI its loggers
     assert {"pbhc_tpu_torch/deploy/mujoco_runtime.py", "pbhc_tpu_torch/deploy/mj_mirror.py",
             "pbhc_tpu_torch/sim/simulator.py"} <= scoped_in["mujoco"]
     assert scoped_in["matplotlib"] == {"pbhc_tpu_torch/vis/vis_motion.py", "pbhc_tpu_torch/vis/vis_smpl.py"}
     assert scoped_in["rerun"] == {"pbhc_tpu_torch/vis/vis_rr.py"}
+    assert scoped_in["wandb"] == scoped_in["torch.utils.tensorboard"] == TRAIN_CLI

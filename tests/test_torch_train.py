@@ -10,7 +10,12 @@ snapshot behind its command, the checkpoints it writes) against `pbhc_tpu`.
   port the same way.
 - `train.main` runs 2 iterations at 128 envs on the CPU per solver, with
   every logged value finite.
+- Logging: with `use_wandb=true` and wandb missing the port prints the JAX
+  CLI's line and trains; its TensorBoard event file holds the tags, at the
+  steps, that `pbhc_tpu.train.main` writes for the same run (recorded from
+  its `SummaryWriter`).
 """
+import sys
 import json
 import pickle
 from types import SimpleNamespace
@@ -147,3 +152,47 @@ def test_train_cli_two_iterations(tmp_path, solver):
 def _assert_same_params(a, b):
     for path, v in jax.tree_util.tree_flatten_with_path(a)[0]:
         np.testing.assert_array_equal(v, dict(jax.tree_util.tree_flatten_with_path(b)[0])[path])
+
+
+# the logging runs: one iteration, 32 envs, 4 steps per env
+SMALL = [*SELS, "num_envs=32", MOTION, "algo.config.num_steps_per_env=4", "algo.config.num_learning_iterations=1"]
+
+
+def test_use_wandb_without_wandb_trains(tmp_path, monkeypatch, capsys):
+    monkeypatch.setitem(sys.modules, "wandb", None)          # `import wandb` raises ImportError
+    _, ts, logs = train.main([*SMALL, "use_wandb=true", "device=cpu", f"base_dir={tmp_path}",
+                              f"artifact_dir={tmp_path}/art"])
+    out = capsys.readouterr().out
+    assert "[train] use_wandb=true but wandb unavailable (" in out and "); TB only\n" in out
+    assert ts.iteration == 1 and len(logs) == 1
+    (run,) = (tmp_path / "PBHC_TPU").iterdir()
+    assert "use_wandb=true but wandb unavailable" in (run / "train.log").read_text()
+
+
+def test_tensorboard_tags_match_jax_cli(tmp_path, monkeypatch):
+    """The port's event file against the scalars the JAX CLI hands its
+    `SummaryWriter` for the same run (a recorder in its place: JAX never
+    closes its writer, so its file may be unflushed when `main` returns)."""
+    pytest.importorskip("tensorboard")
+    import torch.utils.tensorboard as tb
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    train.main([*SMALL, "device=cpu", f"base_dir={tmp_path}/port", f"artifact_dir={tmp_path}/art"])
+    (run,) = (tmp_path / "port" / "PBHC_TPU").iterdir()
+    acc = EventAccumulator(str(run))
+    acc.Reload()
+    port = {tag: [e.step for e in acc.Scalars(tag)] for tag in acc.Tags()["scalars"]}
+
+    written = {}
+
+    class Recorder:
+        def __init__(self, log_dir):
+            pass
+
+        def add_scalar(self, tag, value, step):
+            written.setdefault(tag, []).append(step)
+
+    monkeypatch.setattr(tb, "SummaryWriter", Recorder)
+    jax_train.main([*SMALL, f"base_dir={tmp_path}/jax", f"artifact_dir={tmp_path}/art"])
+    assert "Perf/total_fps" in written and "Loss/kl" in written and len(written) > 10
+    assert port == written
