@@ -39,6 +39,7 @@ import torch
 from pbhc_tpu_torch.agents.networks import (actor_from_config, critic_from_config, flax_init_,
                                             gaussian_entropy, gaussian_log_prob, phase_embed_config,
                                             phase_position)
+from pbhc_tpu_torch.utils.profiling import span
 
 
 class Adam:
@@ -158,49 +159,52 @@ class MHPPO:
     def rollout(self, ts: TrainState):
         """The rollout phase, `num_steps` env steps (`mh_ppo.py:127`). Returns
         (env_state, obs, trajectory {key: [T,N,...]}, env logs {key: [T]})."""
-        env_state, obs = ts.env_state, ts.obs
-        traj, logs = {}, {}
-        sd = self.storage_dtype
-        for t in range(self.num_steps):
-            mean, std = ts.actor(obs["actor_obs"])
-            actions = mean + std * torch.randn(mean.shape, generator=self.gen, device=self.device)
-            logp = gaussian_log_prob(mean, std, actions)
-            values = ts.critic(obs["critic_obs"])
-            env_state, next_obs, rew, done, info = self.env.step(env_state, actions)
-            # timeout bootstrapping per head (reference ppo.py:267-268)
-            rew_stored = rew + self.gamma * values * info["time_outs"][:, None]
-            data = dict(actor_obs=obs["actor_obs"].to(sd), critic_obs=obs["critic_obs"].to(sd),
-                        actions=actions, logp=logp, mean=mean, std=std, values=values,
-                        rewards=rew_stored, dones=done)
-            if self.l2c2:
-                data["next_actor_obs"] = next_obs["actor_obs"].to(sd)
-                data["next_critic_obs"] = next_obs["critic_obs"].to(sd)
-            for k, v in data.items():
-                if k not in traj:
-                    traj[k] = torch.empty((self.num_steps, *v.shape), dtype=v.dtype, device=v.device)
-                traj[k][t] = v
-            for k, v in info["log"].items():
-                logs.setdefault(k, []).append(v)
-            obs = next_obs
-        return env_state, obs, traj, self.env.global_logs({k: torch.stack(v) for k, v in logs.items()})
+        with span("learner.rollout"):
+            env_state, obs = ts.env_state, ts.obs
+            traj, logs = {}, {}
+            sd = self.storage_dtype
+            for t in range(self.num_steps):
+                with span("policy"):
+                    mean, std = ts.actor(obs["actor_obs"])
+                    actions = mean + std * torch.randn(mean.shape, generator=self.gen, device=self.device)
+                    logp = gaussian_log_prob(mean, std, actions)
+                    values = ts.critic(obs["critic_obs"])
+                env_state, next_obs, rew, done, info = self.env.step(env_state, actions)
+                # timeout bootstrapping per head (reference ppo.py:267-268)
+                rew_stored = rew + self.gamma * values * info["time_outs"][:, None]
+                data = dict(actor_obs=obs["actor_obs"].to(sd), critic_obs=obs["critic_obs"].to(sd),
+                            actions=actions, logp=logp, mean=mean, std=std, values=values,
+                            rewards=rew_stored, dones=done)
+                if self.l2c2:
+                    data["next_actor_obs"] = next_obs["actor_obs"].to(sd)
+                    data["next_critic_obs"] = next_obs["critic_obs"].to(sd)
+                for k, v in data.items():
+                    if k not in traj:
+                        traj[k] = torch.empty((self.num_steps, *v.shape), dtype=v.dtype, device=v.device)
+                    traj[k][t] = v
+                for k, v in info["log"].items():
+                    logs.setdefault(k, []).append(v)
+                obs = next_obs
+            return env_state, obs, traj, self.env.global_logs({k: torch.stack(v) for k, v in logs.items()})
 
     def _gae(self, traj, last_values):
         """Per-head GAE; advantages summed over heads, then normalised with the
         population std over every rank's samples (`mh_ppo.py:148`)."""
-        values, rewards, dones = traj["values"], traj["rewards"], traj["dones"]
-        advs = torch.empty_like(values)
-        adv, v_next = torch.zeros_like(last_values), last_values
-        for t in reversed(range(values.shape[0])):
-            not_term = 1.0 - dones[t][:, None].to(torch.float32)
-            delta = rewards[t] + not_term * self.gamma * v_next - values[t]
-            adv = delta + not_term * self.gamma * self.lam * adv
-            advs[t] = adv
-            v_next = values[t]
-        returns = advs + values                                        # [T,N,R]
-        tot_adv = (returns - values).sum(-1)                           # [T,N]
-        mean, std = self.shard.mean_std(tot_adv)
-        adv_norm = (tot_adv - mean) / (std + 1e-8)
-        return returns, adv_norm
+        with span("learner.gae"):
+            values, rewards, dones = traj["values"], traj["rewards"], traj["dones"]
+            advs = torch.empty_like(values)
+            adv, v_next = torch.zeros_like(last_values), last_values
+            for t in reversed(range(values.shape[0])):
+                not_term = 1.0 - dones[t][:, None].to(torch.float32)
+                delta = rewards[t] + not_term * self.gamma * v_next - values[t]
+                adv = delta + not_term * self.gamma * self.lam * adv
+                advs[t] = adv
+                v_next = values[t]
+            returns = advs + values                                    # [T,N,R]
+            tot_adv = (returns - values).sum(-1)                       # [T,N]
+            mean, std = self.shard.mean_std(tot_adv)
+            adv_norm = (tot_adv - mean) / (std + 1e-8)
+            return returns, adv_norm
 
     # ----------------------------------------------------------------- update
     def _l2c2_obs(self, obs, next_obs):
@@ -211,56 +215,57 @@ class MHPPO:
         """One Adam step of actor and critic on `batch` (`mh_ppo.py:167`), this
         rank's rows of a minibatch of `rows` rows in all (default: `batch`'s).
         Updates `ts` in place; returns the minibatch's metrics."""
-        avg = functools.partial(self.shard.share, rows=len(batch["actions"]) if rows is None else rows)
-        aobs = batch["actor_obs"].to(torch.float32)
-        mean, std = ts.actor(aobs)
-        logp = gaussian_log_prob(mean, std, batch["actions"])
-        ratio = torch.exp(logp - batch["logp"])
-        adv = batch["advantages"]
-        surr = -adv * ratio
-        surr_clipped = -adv * torch.clamp(ratio, 1 - self.clip, 1 + self.clip)
-        surrogate = avg(torch.maximum(surr, surr_clipped))
-        entropy = avg(gaussian_entropy(std))
-        a_loss = surrogate - self.entropy_coef * entropy
-        if self.l2c2:
-            u_mean, _ = ts.actor(self._l2c2_obs(aobs, batch["next_actor_obs"]))
-            a_loss = a_loss + float(self.config.l2c2.lambda_policy) * avg((batch["actions"] - u_mean) ** 2)
-        with torch.no_grad():
-            # KL for the adaptive lr (reference mh_ppo.py:469-483)
-            kl = avg(torch.sum(torch.log(std / batch["std"] + 1e-5)
-                               + (batch["std"] ** 2 + (batch["mean"] - mean) ** 2) / (2.0 * std ** 2) - 0.5,
-                               dim=-1))
+        with span("learner.minibatch"):
+            avg = functools.partial(self.shard.share, rows=len(batch["actions"]) if rows is None else rows)
+            aobs = batch["actor_obs"].to(torch.float32)
+            mean, std = ts.actor(aobs)
+            logp = gaussian_log_prob(mean, std, batch["actions"])
+            ratio = torch.exp(logp - batch["logp"])
+            adv = batch["advantages"]
+            surr = -adv * ratio
+            surr_clipped = -adv * torch.clamp(ratio, 1 - self.clip, 1 + self.clip)
+            surrogate = avg(torch.maximum(surr, surr_clipped))
+            entropy = avg(gaussian_entropy(std))
+            a_loss = surrogate - self.entropy_coef * entropy
+            if self.l2c2:
+                u_mean, _ = ts.actor(self._l2c2_obs(aobs, batch["next_actor_obs"]))
+                a_loss = a_loss + float(self.config.l2c2.lambda_policy) * avg((batch["actions"] - u_mean) ** 2)
+            with torch.no_grad():
+                # KL for the adaptive lr (reference mh_ppo.py:469-483)
+                kl = avg(torch.sum(torch.log(std / batch["std"] + 1e-5)
+                                   + (batch["std"] ** 2 + (batch["mean"] - mean) ** 2) / (2.0 * std ** 2) - 0.5,
+                                   dim=-1))
 
-        cobs = batch["critic_obs"].to(torch.float32)
-        value = ts.critic(cobs)
-        target_v, returns = batch["values"], batch["returns"]
-        if self.use_clipped_value_loss:
-            v_clipped = target_v + torch.clamp(value - target_v, -self.clip, self.clip)
-            vloss = avg(torch.maximum((value - returns) ** 2, (v_clipped - returns) ** 2).sum(-1))
-        else:
-            vloss = avg(((returns - value) ** 2).sum(-1))
-        c_loss = self.value_loss_coef * vloss
-        if self.l2c2:
-            u_val = ts.critic(self._l2c2_obs(cobs, batch["next_critic_obs"]))
-            c_loss = c_loss + float(self.config.l2c2.lambda_value) * avg((value - u_val) ** 2)
+            cobs = batch["critic_obs"].to(torch.float32)
+            value = ts.critic(cobs)
+            target_v, returns = batch["values"], batch["returns"]
+            if self.use_clipped_value_loss:
+                v_clipped = target_v + torch.clamp(value - target_v, -self.clip, self.clip)
+                vloss = avg(torch.maximum((value - returns) ** 2, (v_clipped - returns) ** 2).sum(-1))
+            else:
+                vloss = avg(((returns - value) ** 2).sum(-1))
+            c_loss = self.value_loss_coef * vloss
+            if self.l2c2:
+                u_val = ts.critic(self._l2c2_obs(cobs, batch["next_critic_obs"]))
+                c_loss = c_loss + float(self.config.l2c2.lambda_value) * avg((value - u_val) ** 2)
 
-        a_grads = torch.autograd.grad(a_loss, ts.actor_opt.params)
-        c_grads = torch.autograd.grad(c_loss, ts.critic_opt.params)
-        # the ranks' shares summed: global gradients, KL and losses (one all-reduce)
-        na = len(a_grads)
-        *grads, kl, surrogate, vloss, entropy = self.shard.all_sum(
-            [*a_grads, *c_grads, kl, surrogate.detach(), vloss.detach(), entropy.detach()], dtype=torch.float32)
-        a_grads, c_grads = grads[:na], grads[na:]
-        # the adaptive lr of this step, from this minibatch's KL (`mh_ppo.py:213-219`)
-        lr = ts.lr
-        lr = torch.where(kl > self.desired_kl * 2.0, torch.clamp(lr / 1.5, min=1e-5),
-                         torch.where((kl < self.desired_kl / 2.0) & (kl > 0.0),
-                                     torch.clamp(lr * 1.5, max=1e-2), lr))
-        ts.lr = lr
-        ts.actor_opt.step(a_grads, lr)
-        ts.critic_opt.step(c_grads, lr)
-        return dict(surrogate=surrogate.detach(), value_loss=vloss.detach(), entropy=entropy.detach(),
-                    kl=kl)
+            a_grads = torch.autograd.grad(a_loss, ts.actor_opt.params)
+            c_grads = torch.autograd.grad(c_loss, ts.critic_opt.params)
+            # the ranks' shares summed: global gradients, KL and losses (one all-reduce)
+            na = len(a_grads)
+            *grads, kl, surrogate, vloss, entropy = self.shard.all_sum(
+                [*a_grads, *c_grads, kl, surrogate.detach(), vloss.detach(), entropy.detach()], dtype=torch.float32)
+            a_grads, c_grads = grads[:na], grads[na:]
+            # the adaptive lr of this step, from this minibatch's KL (`mh_ppo.py:213-219`)
+            lr = ts.lr
+            lr = torch.where(kl > self.desired_kl * 2.0, torch.clamp(lr / 1.5, min=1e-5),
+                             torch.where((kl < self.desired_kl / 2.0) & (kl > 0.0),
+                                         torch.clamp(lr * 1.5, max=1e-2), lr))
+            ts.lr = lr
+            ts.actor_opt.step(a_grads, lr)
+            ts.critic_opt.step(c_grads, lr)
+            return dict(surrogate=surrogate.detach(), value_loss=vloss.detach(), entropy=entropy.detach(),
+                        kl=kl)
 
     def learn(self, ts: TrainState, rollout, perms=None):
         """The update phase (`mh_ppo.py:235-287`) on a `rollout` (this rank's
@@ -268,36 +273,37 @@ class MHPPO:
         samples (`perms`, drawn from `perm_gen` when None) `num_minibatches`
         minibatch updates. Updates `ts` in place and returns it with the
         iteration's log (0-d tensors, not synchronised)."""
-        env_state, obs, traj, env_logs = rollout
-        with torch.no_grad():
-            last_values = ts.critic(obs["critic_obs"])
-        returns, advantages = self._gae(traj, last_values)
-        T, N = traj["values"].shape[:2]
-        flat = {k: v.reshape(T * N, *v.shape[2:]) for k, v in traj.items()}
-        flat["returns"] = returns.reshape(T * N, -1)
-        flat["advantages"] = advantages.reshape(T * N)
-        samples = T * self.shard.num_envs                 # over every rank
-        if perms is None:
-            perms = [torch.randperm(samples, generator=self.perm_gen, device=self.device)
-                     for _ in range(self.num_epochs)]
-        mb = samples // self.num_minibatches
-        metrics = []
-        for perm in perms:
-            for i in range(self.num_minibatches):
-                idx = self.shard.local_rows(perm[i * mb:(i + 1) * mb])
-                metrics.append(self._minibatch_update(ts, {k: v[idx] for k, v in flat.items()}, mb))
-        mean = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
-        log = {f"Env/{k}": v.mean() for k, v in env_logs.items()}
-        log.update({
-            "Train/mean_step_reward": self.shard.global_mean(traj["rewards"].sum(-1)),
-            "Loss/surrogate": mean["surrogate"],
-            "Loss/value": mean["value_loss"],
-            "Loss/entropy": mean["entropy"],
-            "Loss/kl": mean["kl"],
-            "Loss/lr": ts.lr,
-        })
-        ts.env_state, ts.obs, ts.iteration = env_state, obs, ts.iteration + 1
-        return ts, log
+        with span("learner.update"):
+            env_state, obs, traj, env_logs = rollout
+            with torch.no_grad():
+                last_values = ts.critic(obs["critic_obs"])
+            returns, advantages = self._gae(traj, last_values)
+            T, N = traj["values"].shape[:2]
+            flat = {k: v.reshape(T * N, *v.shape[2:]) for k, v in traj.items()}
+            flat["returns"] = returns.reshape(T * N, -1)
+            flat["advantages"] = advantages.reshape(T * N)
+            samples = T * self.shard.num_envs             # over every rank
+            if perms is None:
+                perms = [torch.randperm(samples, generator=self.perm_gen, device=self.device)
+                         for _ in range(self.num_epochs)]
+            mb = samples // self.num_minibatches
+            metrics = []
+            for perm in perms:
+                for i in range(self.num_minibatches):
+                    idx = self.shard.local_rows(perm[i * mb:(i + 1) * mb])
+                    metrics.append(self._minibatch_update(ts, {k: v[idx] for k, v in flat.items()}, mb))
+            mean = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
+            log = {f"Env/{k}": v.mean() for k, v in env_logs.items()}
+            log.update({
+                "Train/mean_step_reward": self.shard.global_mean(traj["rewards"].sum(-1)),
+                "Loss/surrogate": mean["surrogate"],
+                "Loss/value": mean["value_loss"],
+                "Loss/entropy": mean["entropy"],
+                "Loss/kl": mean["kl"],
+                "Loss/lr": ts.lr,
+            })
+            ts.env_state, ts.obs, ts.iteration = env_state, obs, ts.iteration + 1
+            return ts, log
 
     def train_iteration(self, ts: TrainState):
         """Rollout + update (`mh_ppo.py:232`): `learn(ts, rollout(ts))`."""

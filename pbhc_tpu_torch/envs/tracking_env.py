@@ -42,6 +42,7 @@ from pbhc_tpu_torch.parallel.mesh import EnvShard
 from pbhc_tpu_torch.sim.engine import Engine, EngineOptions, SimState, tree_map
 from pbhc_tpu_torch.sim.engine_lanes import LanesEngine
 from pbhc_tpu_torch.utils.noise_tool import ou_step
+from pbhc_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -673,170 +674,177 @@ class MotionTrackingEnv:
         """One control step -> (state, obs_dict, rew [N,R], done, info) (`tracking_env.py:720`)."""
         N, dev, dr = self.num_envs, self.device, self.dr
         ecfg = self.ecfg
-        if self.only_track_leg:
-            mres_leg, _ = self._motion_state_at(state, 1)
-            na = self.num_actions
-            rest = (mres_leg["dof_pos"][:, na:] - state.default_dof_pos[:, na:]) / self.action_scales[na:]
-            actions = torch.cat([actions, rest], dim=-1)
-        actions = torch.clamp(actions, -self.action_clip, self.action_clip)
-        if dr.get("randomize_ctrl_delay", False):
-            queue = torch.cat([actions[:, None], state.action_queue[:, :-1]], dim=1)
-            after_delay = queue[torch.arange(N, device=dev), state.action_delay_idx]
-        else:
-            queue, after_delay = state.action_queue, actions
+        with span("env.step"):
+            with span("env.actions"):
+                if self.only_track_leg:
+                    mres_leg, _ = self._motion_state_at(state, 1)
+                    na = self.num_actions
+                    rest = (mres_leg["dof_pos"][:, na:] - state.default_dof_pos[:, na:]) / self.action_scales[na:]
+                    actions = torch.cat([actions, rest], dim=-1)
+                actions = torch.clamp(actions, -self.action_clip, self.action_clip)
+                if dr.get("randomize_ctrl_delay", False):
+                    queue = torch.cat([actions[:, None], state.action_queue[:, :-1]], dim=1)
+                    after_delay = queue[torch.arange(N, device=dev), state.action_delay_idx]
+                else:
+                    queue, after_delay = state.action_queue, actions
 
-        sim = state.sim
-        push_counter = state.push_counter + 1
-        push_interval = state.push_interval
-        if dr.get("push_robots", False):
-            do_push = push_counter >= push_interval
-            max_vel = float(dr.max_push_vel_xy)
-            push_vel = self._uniform((N, 2), -max_vel, max_vel)
-            vel_xy = sim.root_lin_vel[:, :2]
-            new_xy = vel_xy + push_vel if dr.get("_push_fixed", False) else push_vel
-            sim = dataclasses.replace(sim, root_lin_vel=torch.where(
-                do_push[:, None], torch.cat([new_xy, sim.root_lin_vel[:, 2:]], -1), sim.root_lin_vel))
-            push_counter = torch.where(do_push, 0, push_counter)
-            push_interval = torch.where(do_push, self._sample_push_interval(N), push_interval)
+                sim = state.sim
+                push_counter = state.push_counter + 1
+                push_interval = state.push_interval
+                if dr.get("push_robots", False):
+                    do_push = push_counter >= push_interval
+                    max_vel = float(dr.max_push_vel_xy)
+                    push_vel = self._uniform((N, 2), -max_vel, max_vel)
+                    vel_xy = sim.root_lin_vel[:, :2]
+                    new_xy = vel_xy + push_vel if dr.get("_push_fixed", False) else push_vel
+                    sim = dataclasses.replace(sim, root_lin_vel=torch.where(
+                        do_push[:, None], torch.cat([new_xy, sim.root_lin_vel[:, 2:]], -1), sim.root_lin_vel))
+                    push_counter = torch.where(do_push, 0, push_counter)
+                    push_interval = torch.where(do_push, self._sample_push_interval(N), push_interval)
 
-        kp_eff = state.kp_scale * self.p_gains
-        kd_eff = state.kd_scale * self.d_gains
-        target = after_delay * self.action_scales + state.default_dof_pos
-        torque_fn = self._torque_fn(state, target, kp_eff, kd_eff)
-        pre = self._sdc_pre_fn(state, sim) if self.use_sdc else None
-        # `solver: lanes` runs the env-last engine (kernel 1), `solver: pallas`
-        # at N % 128 == 0 the env-first batched step (kernel 2), anything else
-        # the per-env engine (`tracking_env.py:791-896`)
-        if self.physics == "lanes":
-            sim, torques = self.lanes_engine.control_step_batched(
-                self.sim_params, sim, torque_fn, self.decimation, paramsT=self.paramsT, pre_substep_fn=pre)
-        elif self.physics == "batched":
-            sim, torques = self.engine.control_step_batched(
-                self.sim_params, sim, torque_fn, self.decimation, paramsT=self.paramsT)
-        else:
-            sim, torques = self.engine.control_step(
-                self.sim_params, sim, torque_fn, self.decimation, pre_substep_fn=pre, paramsT=self.paramsT)
-        episode_length = state.episode_length + 1
+                kp_eff = state.kp_scale * self.p_gains
+                kd_eff = state.kd_scale * self.d_gains
+                target = after_delay * self.action_scales + state.default_dof_pos
+                torque_fn = self._torque_fn(state, target, kp_eff, kd_eff)
+                pre = self._sdc_pre_fn(state, sim) if self.use_sdc else None
+            with span("env.engine"):
+                # `solver: lanes` runs the env-last engine (kernel 1), `solver: pallas`
+                # at N % 128 == 0 the env-first batched step (kernel 2), anything else
+                # the per-env engine (`tracking_env.py:791-896`)
+                if self.physics == "lanes":
+                    sim, torques = self.lanes_engine.control_step_batched(
+                        self.sim_params, sim, torque_fn, self.decimation, paramsT=self.paramsT, pre_substep_fn=pre)
+                elif self.physics == "batched":
+                    sim, torques = self.engine.control_step_batched(
+                        self.sim_params, sim, torque_fn, self.decimation, paramsT=self.paramsT)
+                else:
+                    sim, torques = self.engine.control_step(
+                        self.sim_params, sim, torque_fn, self.decimation, pre_substep_fn=pre, paramsT=self.paramsT)
+            with span("env.rewards"):
+                episode_length = state.episode_length + 1
 
-        base_quat = sim.root_quat
-        gravity = self._gravity_vec.expand(N, 3)
-        projected_gravity = rot.quat_rotate_inverse(base_quat, gravity)
-        base_lin_vel = rot.quat_rotate_inverse(base_quat, sim.root_lin_vel)
-        feet_cf = sim.contact_forces[:, self.feet_indices]
-        contacts = (torch.linalg.vector_norm(feet_cf, dim=-1) > 1.0).to(torch.float32)
-        contacts_filt = ((contacts > 0) | (state.last_contacts > 0)).to(torch.float32)
+                base_quat = sim.root_quat
+                gravity = self._gravity_vec.expand(N, 3)
+                projected_gravity = rot.quat_rotate_inverse(base_quat, gravity)
+                base_lin_vel = rot.quat_rotate_inverse(base_quat, sim.root_lin_vel)
+                feet_cf = sim.contact_forces[:, self.feet_indices]
+                contacts = (torch.linalg.vector_norm(feet_cf, dim=-1) > 1.0).to(torch.float32)
+                contacts_filt = ((contacts > 0) | (state.last_contacts > 0)).to(torch.float32)
 
-        st_tmp = dataclasses.replace(state, episode_length=episode_length, sim=sim)
-        mres, _ = self._motion_state_at(st_tmp, 1)
-        body_pos, body_quat, body_vel, body_ang_vel = self._extend_body_states(sim)
-        diffs = self._compute_diffs(sim, mres, body_pos, body_quat, body_vel, body_ang_vel)
+                st_tmp = dataclasses.replace(state, episode_length=episode_length, sim=sim)
+                mres, _ = self._motion_state_at(st_tmp, 1)
+                body_pos, body_quat, body_vel, body_ang_vel = self._extend_body_states(sim)
+                diffs = self._compute_diffs(sim, mres, body_pos, body_quat, body_vel, body_ang_vel)
 
-        # termination (`tracking_env.py:924-986`)
-        term = {}
-        tcfg, tscl = ecfg.termination, ecfg.termination_scales
-        norm = torch.linalg.vector_norm
-        if tcfg.terminate_by_contact:
-            term["contact"] = torch.any(
-                norm(sim.contact_forces[:, self.termination_contact_indices], dim=-1) > 1.0, dim=1)
-        if tcfg.terminate_by_gravity:
-            term["gravity"] = norm(projected_gravity[:, :2], dim=-1) > float(tscl.termination_gravity)
-        if tcfg.terminate_by_low_height:
-            term["low_height"] = sim.root_pos[:, 2] < float(tscl.termination_min_base_height)
-        if tcfg.terminate_when_motion_far:
-            term["motion_far"] = torch.any(norm(diffs["dif_body_pos"], dim=-1) > state.motion_far_threshold, dim=-1)
-        if tcfg.terminate_when_dof_far:
-            term["dof_far"] = norm(diffs["dif_joint_pos"], dim=-1) > state.dof_far_threshold
-        # probabilistic close-to-limit terminations: one Bernoulli gate per
-        # step shared across envs (`tracking_env.py:943-961`)
-        tprob = ecfg.termination_probality
-        if tcfg.get("terminate_when_close_to_dof_pos_limit", False):
-            lim = self.dof_pos_limits
-            m, r = (lim[:, 0] + lim[:, 1]) / 2, lim[:, 1] - lim[:, 0]
-            sc = float(tscl.termination_close_to_dof_pos_limit)
-            out = (-torch.clamp(sim.dof_pos - (m - 0.5 * r * sc), max=0.0)
-                   + torch.clamp(sim.dof_pos - (m + 0.5 * r * sc), min=0.0)).sum(-1)
-            term["dof_pos_limit"] = (out > 0) & self._gate(tprob.terminate_when_close_to_dof_pos_limit)
-        if tcfg.get("terminate_when_close_to_dof_vel_limit", False):
-            out = torch.clamp(torch.abs(sim.dof_vel) - self.dof_vel_limits
-                              * float(tscl.termination_close_to_dof_vel_limit), 0.0, 1.0).sum(-1)
-            term["dof_vel_limit"] = (out > 0) & self._gate(tprob.terminate_when_close_to_dof_vel_limit)
-        if tcfg.get("terminate_when_close_to_torque_limit", False):
-            out = torch.clamp(torch.abs(torques) - self.torque_limits
-                              * float(tscl.termination_close_to_torque_limit), 0.0, 1.0).sum(-1)
-            term["torque_limit"] = (out > 0) & self._gate(tprob.terminate_when_close_to_torque_limit)
-        term = self._extra_terminations(term, diffs, state)
-        term["nonfinite"] = ~(torch.isfinite(sim.dof_pos).all(-1) & torch.isfinite(sim.dof_vel).all(-1)
-                              & torch.isfinite(sim.root_pos).all(-1) & torch.isfinite(sim.root_quat).all(-1))
-        reset_buf = torch.zeros((N,), dtype=torch.bool, device=dev)
-        for v in term.values():
-            reset_buf = reset_buf | v
-        time_out = episode_length > self.max_episode_length
-        if tcfg.terminate_when_motion_end:
-            current_time = episode_length.to(torch.float32) * self.dt + state.motion_start_times
-            term["motion_end"] = current_time > state.motion_len
-            time_out = time_out | term["motion_end"]
-        term["time_out"] = time_out
-        reset_buf = reset_buf | time_out
+                # termination (`tracking_env.py:924-986`)
+                term = {}
+                tcfg, tscl = ecfg.termination, ecfg.termination_scales
+                norm = torch.linalg.vector_norm
+                if tcfg.terminate_by_contact:
+                    term["contact"] = torch.any(
+                        norm(sim.contact_forces[:, self.termination_contact_indices], dim=-1) > 1.0, dim=1)
+                if tcfg.terminate_by_gravity:
+                    term["gravity"] = norm(projected_gravity[:, :2], dim=-1) > float(tscl.termination_gravity)
+                if tcfg.terminate_by_low_height:
+                    term["low_height"] = sim.root_pos[:, 2] < float(tscl.termination_min_base_height)
+                if tcfg.terminate_when_motion_far:
+                    term["motion_far"] = torch.any(norm(diffs["dif_body_pos"], dim=-1) > state.motion_far_threshold,
+                                                   dim=-1)
+                if tcfg.terminate_when_dof_far:
+                    term["dof_far"] = norm(diffs["dif_joint_pos"], dim=-1) > state.dof_far_threshold
+                # probabilistic close-to-limit terminations: one Bernoulli gate per
+                # step shared across envs (`tracking_env.py:943-961`)
+                tprob = ecfg.termination_probality
+                if tcfg.get("terminate_when_close_to_dof_pos_limit", False):
+                    lim = self.dof_pos_limits
+                    m, r = (lim[:, 0] + lim[:, 1]) / 2, lim[:, 1] - lim[:, 0]
+                    sc = float(tscl.termination_close_to_dof_pos_limit)
+                    out = (-torch.clamp(sim.dof_pos - (m - 0.5 * r * sc), max=0.0)
+                           + torch.clamp(sim.dof_pos - (m + 0.5 * r * sc), min=0.0)).sum(-1)
+                    term["dof_pos_limit"] = (out > 0) & self._gate(tprob.terminate_when_close_to_dof_pos_limit)
+                if tcfg.get("terminate_when_close_to_dof_vel_limit", False):
+                    out = torch.clamp(torch.abs(sim.dof_vel) - self.dof_vel_limits
+                                      * float(tscl.termination_close_to_dof_vel_limit), 0.0, 1.0).sum(-1)
+                    term["dof_vel_limit"] = (out > 0) & self._gate(tprob.terminate_when_close_to_dof_vel_limit)
+                if tcfg.get("terminate_when_close_to_torque_limit", False):
+                    out = torch.clamp(torch.abs(torques) - self.torque_limits
+                                      * float(tscl.termination_close_to_torque_limit), 0.0, 1.0).sum(-1)
+                    term["torque_limit"] = (out > 0) & self._gate(tprob.terminate_when_close_to_torque_limit)
+                term = self._extra_terminations(term, diffs, state)
+                term["nonfinite"] = ~(torch.isfinite(sim.dof_pos).all(-1) & torch.isfinite(sim.dof_vel).all(-1)
+                                      & torch.isfinite(sim.root_pos).all(-1) & torch.isfinite(sim.root_quat).all(-1))
+                reset_buf = torch.zeros((N,), dtype=torch.bool, device=dev)
+                for v in term.values():
+                    reset_buf = reset_buf | v
+                time_out = episode_length > self.max_episode_length
+                if tcfg.terminate_when_motion_end:
+                    current_time = episode_length.to(torch.float32) * self.dt + state.motion_start_times
+                    term["motion_end"] = current_time > state.motion_len
+                    time_out = time_out | term["motion_end"]
+                term["time_out"] = time_out
+                reset_buf = reset_buf | time_out
 
-        rew_state = dict(
-            sim=sim, torques=torques, actions=actions, last_actions=state.last_actions,
-            last_dof_vel=state.last_dof_vel, projected_gravity=projected_gravity,
-            contacts=contacts, contacts_filt=contacts_filt, last_contacts=state.last_contacts,
-            last_contacts_filt=state.last_contacts_filt, feet_air_time=state.feet_air_time,
-            body_vel=body_vel, ref_contact_mask=mres["contact_mask"], reset_buf=reset_buf,
-            time_out=time_out, base_lin_vel=base_lin_vel, mres=mres, diffs=diffs,
-            body_pos=body_pos, body_quat=body_quat, body_ang_vel=body_ang_vel, **diffs)
-        rew_vec, feet_air_time, errors = self._compute_rewards(state, rew_state)
+                rew_state = dict(
+                    sim=sim, torques=torques, actions=actions, last_actions=state.last_actions,
+                    last_dof_vel=state.last_dof_vel, projected_gravity=projected_gravity,
+                    contacts=contacts, contacts_filt=contacts_filt, last_contacts=state.last_contacts,
+                    last_contacts_filt=state.last_contacts_filt, feet_air_time=state.feet_air_time,
+                    body_vel=body_vel, ref_contact_mask=mres["contact_mask"], reset_buf=reset_buf,
+                    time_out=time_out, base_lin_vel=base_lin_vel, mres=mres, diffs=diffs,
+                    body_pos=body_pos, body_quat=body_quat, body_ang_vel=body_ang_vel, **diffs)
+                rew_vec, feet_air_time, errors = self._compute_rewards(state, rew_state)
 
-        # the replicated scalars' reductions over the env axis, global over
-        # every rank's envs by one packed all-reduce (`parallel/mesh.py`)
-        asc = ecfg.get("adaptive_motion_sampling")
-        adaptive = self.motion_lib.num_unique > 1 and asc and bool(asc.get("enabled", False))
-        sigma_errs = [errors[t].mean() / self.shard.world for t in self.sigma_terms
-                      if self.adaptive_sigma and t in errors]
-        sums = [reset_buf.sum(), (episode_length * reset_buf).sum(), *sigma_errs]
-        if adaptive:
-            M = self.motion_lib.num_unique
-            sums.append(torch.zeros(M, device=dev).index_add_(0, state.motion_ids, reset_buf.float()))
-            sums.append(torch.zeros(M, device=dev).index_add_(0, state.motion_ids,
-                                                              (reset_buf & ~time_out).float()))
-        sums = self.shard.all_sum(sums)
-        n_reset, epl_sum = sums[:2]
-        sigma_values, sigma_ema = self._update_sigmas(state, dict(zip(
-            [t for t in self.sigma_terms if self.adaptive_sigma and t in errors], sums[2:2 + len(sigma_errs)])))
-        avg_epl = self._update_avg_episode_length(state, epl_sum, n_reset)
-        motion_fail_ema = state.motion_fail_ema
-        if adaptive:
-            g = float(asc.get("gamma", 0.1))
-            resets, fails = sums[-2:]
-            rate = fails / torch.clamp(resets, min=1.0)
-            motion_fail_ema = torch.where(resets > 0, (1.0 - g) * motion_fail_ema + g * rate, motion_fail_ema)
-        state2 = dataclasses.replace(
-            state, sim=sim, episode_length=episode_length, feet_air_time=feet_air_time,
-            average_episode_length=avg_epl, motion_fail_ema=motion_fail_ema,
-            sigma_values=sigma_values, sigma_ema=sigma_ema, push_counter=push_counter,
-            push_interval=push_interval, action_queue=queue, actions=actions,
-            actions_after_delay=after_delay, torques=torques, last_episode_length=episode_length)
-        state2 = self._update_curricula(state2, n_reset)
-        state2 = self._reset_envs(state2, reset_buf)
-        if self.noise_process is not None:
-            # the OU process behind the noised IMU observations (`tracking_env.py:1036-1045`)
-            kw = dict(self.noise_process.get("kwargs", {}))
-            noise_ou, _ = ou_step(state2.noise_ou, self.gen, self.dt, theta=float(kw.get("theta", 1.0)),
-                                  sigma=float(kw.get("sigma", 1.0)))
-            state2 = dataclasses.replace(state2, noise_ou=torch.where(reset_buf[:, None], 0.0, noise_ou))
-
-        obs_dict, hist = self.compute_observations(state2)
-        m1 = reset_buf[:, None]
-        state3 = dataclasses.replace(
-            state2, history=hist, last_actions=state2.actions, last_dof_vel=state2.sim.dof_vel,
-            last_contacts=torch.where(m1, 0.0, contacts), last_contacts_filt=torch.where(m1, 0.0, contacts_filt),
-            contacts=torch.where(m1, 0.0, contacts), contacts_filt=torch.where(m1, 0.0, contacts_filt))
-        info = {"time_outs": time_out, "nonfinite": term["nonfinite"],
-                "log": self._build_log(term, reset_buf, rew_vec, errors, state3)}
-        if not self.use_vec_reward:
-            rew_vec = rew_vec.sum(-1, keepdim=True)
-        return state3, obs_dict, rew_vec, reset_buf, info
+                # the replicated scalars' reductions over the env axis, global over
+                # every rank's envs by one packed all-reduce (`parallel/mesh.py`)
+                asc = ecfg.get("adaptive_motion_sampling")
+                adaptive = self.motion_lib.num_unique > 1 and asc and bool(asc.get("enabled", False))
+                sigma_errs = [errors[t].mean() / self.shard.world for t in self.sigma_terms
+                              if self.adaptive_sigma and t in errors]
+                sums = [reset_buf.sum(), (episode_length * reset_buf).sum(), *sigma_errs]
+                if adaptive:
+                    M = self.motion_lib.num_unique
+                    sums.append(torch.zeros(M, device=dev).index_add_(0, state.motion_ids, reset_buf.float()))
+                    sums.append(torch.zeros(M, device=dev).index_add_(0, state.motion_ids,
+                                                                      (reset_buf & ~time_out).float()))
+                sums = self.shard.all_sum(sums)
+                n_reset, epl_sum = sums[:2]
+                sigma_values, sigma_ema = self._update_sigmas(state, dict(zip(
+                    [t for t in self.sigma_terms if self.adaptive_sigma and t in errors], sums[2:2 + len(sigma_errs)])))
+                avg_epl = self._update_avg_episode_length(state, epl_sum, n_reset)
+                motion_fail_ema = state.motion_fail_ema
+                if adaptive:
+                    g = float(asc.get("gamma", 0.1))
+                    resets, fails = sums[-2:]
+                    rate = fails / torch.clamp(resets, min=1.0)
+                    motion_fail_ema = torch.where(resets > 0, (1.0 - g) * motion_fail_ema + g * rate, motion_fail_ema)
+                state2 = dataclasses.replace(
+                    state, sim=sim, episode_length=episode_length, feet_air_time=feet_air_time,
+                    average_episode_length=avg_epl, motion_fail_ema=motion_fail_ema,
+                    sigma_values=sigma_values, sigma_ema=sigma_ema, push_counter=push_counter,
+                    push_interval=push_interval, action_queue=queue, actions=actions,
+                    actions_after_delay=after_delay, torques=torques, last_episode_length=episode_length)
+                state2 = self._update_curricula(state2, n_reset)
+            with span("env.resets"):
+                state2 = self._reset_envs(state2, reset_buf)
+                if self.noise_process is not None:
+                    # the OU process behind the noised IMU observations (`tracking_env.py:1036-1045`)
+                    kw = dict(self.noise_process.get("kwargs", {}))
+                    noise_ou, _ = ou_step(state2.noise_ou, self.gen, self.dt, theta=float(kw.get("theta", 1.0)),
+                                          sigma=float(kw.get("sigma", 1.0)))
+                    state2 = dataclasses.replace(state2, noise_ou=torch.where(reset_buf[:, None], 0.0, noise_ou))
+            with span("env.observations"):
+                obs_dict, hist = self.compute_observations(state2)
+                m1 = reset_buf[:, None]
+                state3 = dataclasses.replace(
+                    state2, history=hist, last_actions=state2.actions, last_dof_vel=state2.sim.dof_vel,
+                    last_contacts=torch.where(m1, 0.0, contacts),
+                    last_contacts_filt=torch.where(m1, 0.0, contacts_filt),
+                    contacts=torch.where(m1, 0.0, contacts), contacts_filt=torch.where(m1, 0.0, contacts_filt))
+                info = {"time_outs": time_out, "nonfinite": term["nonfinite"],
+                        "log": self._build_log(term, reset_buf, rew_vec, errors, state3)}
+                if not self.use_vec_reward:
+                    rew_vec = rew_vec.sum(-1, keepdim=True)
+            return state3, obs_dict, rew_vec, reset_buf, info
 
     # ---------------------------------------------------------------- rewards
     def _compute_rewards(self, state: EnvState, rs):

@@ -29,6 +29,7 @@ from pbhc_tpu_torch.envs.general_tracking_env import GeneralTrackingEnv
 from pbhc_tpu_torch.envs.tracking_env import MotionTrackingEnv
 from pbhc_tpu_torch.eval.metrics import eval_accuracy, eval_smoothness
 from pbhc_tpu_torch.utils.checkpoint import load_checkpoint_payload
+from pbhc_tpu_torch.utils.profiling import span
 
 ENV_TARGET = "pbhc_tpu.envs.tracking_env.MotionTrackingEnv"
 GENERAL_ENV_TARGET = "pbhc_tpu.envs.general_tracking_env.GeneralTrackingEnv"
@@ -65,9 +66,10 @@ def load(ckpt_path, num_envs, overrides=(), device="cuda", seed=0):
 def act_mean(actor, obs):
     """The deterministic action of a loaded actor (`batch_eval.py:66-81`): a
     `MimicActorCritic` acts through its history latent."""
-    if isinstance(actor, MimicActorCritic):
-        return actor.act(obs, True)[0]
-    return actor(obs["actor_obs"])[0]
+    with span("policy"):
+        if isinstance(actor, MimicActorCritic):
+            return actor.act(obs, True)[0]
+        return actor(obs["actor_obs"])[0]
 
 
 def start_episodes(env):

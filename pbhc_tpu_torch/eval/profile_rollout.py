@@ -6,7 +6,9 @@ the rollout `warmup` times, then traces `steps` control steps with
 `torch.profiler` and prints one JSON line: host wall time per control step
 (synchronised), device-busy time per step (sum of the CUDA kernels' times on
 the one stream), the busy share, CUDA kernels launched per step, the contact
-kernels' device time per step, and the top ops by device time.
+kernels' device time per step, the top ops by device time, and `by_span`:
+the step split by stage (the program's innermost spans, `env.engine`,
+`engine.contact`, ...: device ms, kernels launched and host syncs per step).
 
     python -m pbhc_tpu_torch.eval.profile_rollout [num_envs=4096] [steps=5] [warmup=3] [checkpoint=<pkl>] \
         [a.b.c=value ...]
@@ -26,6 +28,7 @@ from collections import defaultdict
 import torch
 
 from pbhc_tpu_torch.eval import batch_eval
+from pbhc_tpu_torch.utils import profiling
 
 CKPT = "artifacts/kb1_side_kick/ckpt/model_10500.pkl"
 
@@ -56,16 +59,17 @@ def profile_rollout(num_envs=4096, steps=5, warmup=3, checkpoint=CKPT, overrides
         run(steps)
         torch.cuda.synchronize()
     return {"checkpoint": str(checkpoint), "num_envs": num_envs, "steps": steps, "overrides": list(overrides),
-            **device_summary(prof, steps, wall_ms, "step"),
+            **device_summary(prof, steps, wall_ms, "step", profiling.sessions()[-1]),
             "device": torch.cuda.get_device_name(dev)}
 
 
-def device_summary(prof, n, wall_ms, unit):
+def device_summary(prof, n, wall_ms, unit, records):
     """Per `unit` (a step or an iteration, `n` of them traced) from a
     `torch.profiler` trace: the host wall ms (measured outside the trace), the
     device-busy ms (the CUDA kernels' times on the one stream), the busy share,
-    CUDA kernels launched, each contact kernel's device ms, and the top aten
-    ops by device time."""
+    CUDA kernels launched, each contact kernel's device ms, the top aten
+    ops by device time, and the split by the program's spans, whose
+    `records` the trace made (`by_span`)."""
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time for e in kernels) / 1e3 / n
     by_op = defaultdict(float)
@@ -80,7 +84,33 @@ def device_summary(prof, n, wall_ms, unit):
     for name in ("apgd_lanes", "apgd_envfirst"):
         out[f"{name}_ms_per_{unit}"] = sum(e.device_time for e in kernels if name in e.name) / 1e3 / n
     out[f"top_ops_device_ms_per_{unit}"] = {k: v / 1e3 / n for k, v in top}
+    out["by_span"] = by_span(prof, records, n)
     return out
+
+
+def by_span(prof, records, n):
+    """{span: {"device_ms", "kernels", "host_syncs"}} per unit: each kernel
+    credited to the innermost program span around the op that launched it
+    (the kernel's correlation with its launching op; kernels launched outside
+    every span under "(none)"), each host sync to the span it was counted in."""
+    names = {r.name for r in records}
+    out = {}
+
+    def entry(name):
+        return out.setdefault(name, {"device_ms": 0.0, "kernels": 0.0, "host_syncs": 0.0})
+
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        op = e
+        while op is not None and op.name not in names:
+            op = op.cpu_parent
+        t = entry("(none)" if op is None else op.name)
+        t["device_ms"] += sum(k.duration for k in e.kernels) / 1e3 / n
+        t["kernels"] += len(e.kernels) / n
+    for r in records:
+        entry(r.name)["host_syncs"] += r.syncs / n
+    return {k: out[k] for k in sorted(out, key=lambda k: -out[k]["device_ms"])}
 
 
 def main(argv=None):

@@ -28,6 +28,7 @@ from pbhc_tpu_torch.maths import rotations as rot
 from pbhc_tpu_torch.model.kinematics import _level_order
 from pbhc_tpu_torch.sim.contact_kernel import apgd_lanes, matvec_plain, round_to
 from pbhc_tpu_torch.sim.engine import GRAVITY, Engine, SimParams, SimState, active_set_indices
+from pbhc_tpu_torch.utils.profiling import span
 
 
 # --------------------------------------------------------------------- helpers
@@ -410,70 +411,73 @@ class LanesEngine:
         nv, K, KT = self.nv, self.K, self.KT
         N = tauT.shape[-1]
         dev = self.device
-        u_plus, M_inv, Jf, phi, C = self._pre_contact(paramsT, stateT, tauT)
+        with span("engine.dynamics"):
+            u_plus, M_inv, Jf, phi, C = self._pre_contact(paramsT, stateT, tauT)
 
-        if lam_prev is None:
-            lam_cf = torch.zeros((KT, 3, N), device=dev)
-        elif self.P:
-            pair_cf = torch.stack([sum(C[a][b] * lam_prev[K:, b] for b in range(3))
-                                   for a in range(3)], dim=1)
-            lam_cf = torch.cat([lam_prev[:K], pair_cf], dim=0)
-        else:
-            lam_cf = lam_prev
+        with span("engine.contact"):
+            if lam_prev is None:
+                lam_cf = torch.zeros((KT, 3, N), device=dev)
+            elif self.P:
+                pair_cf = torch.stack([sum(C[a][b] * lam_prev[K:, b] for b in range(3))
+                                       for a in range(3)], dim=1)
+                lam_cf = torch.cat([lam_prev[:K], pair_cf], dim=0)
+            else:
+                lam_cf = lam_prev
 
-        idx = active_set_indices(opt, K, self.P, phi.T)                 # [N,cap] | None
-        idxT = None
-        if idx is not None:
-            idxT = idx.T.contiguous()                                   # [cap,N]
-            cap = idxT.shape[0]
-            Jf = torch.gather(Jf.reshape(KT, 3 * nv, N), 0,
-                              idxT[:, None, :].expand(cap, 3 * nv, N)).reshape(cap * 3, nv, N)
-            phi = torch.gather(phi, 0, idxT)
-            lam_cf = torch.gather(lam_cf, 0, idxT[:, None, :].expand(cap, 3, N))
-        R = phi.shape[0]
+            idx = active_set_indices(opt, K, self.P, phi.T)             # [N,cap] | None
+            idxT = None
+            if idx is not None:
+                idxT = idx.T.contiguous()                               # [cap,N]
+                cap = idxT.shape[0]
+                Jf = torch.gather(Jf.reshape(KT, 3 * nv, N), 0,
+                                  idxT[:, None, :].expand(cap, 3 * nv, N)).reshape(cap * 3, nv, N)
+                phi = torch.gather(phi, 0, idxT)
+                lam_cf = torch.gather(lam_cf, 0, idxT[:, None, :].expand(cap, 3, N))
+            R = phi.shape[0]
 
-        # Delassus A = Jf M⁻¹ Jfᵀ: batched products outside the kernel, as in XLA
-        JM = torch.einsum("avn,vwn->awn", Jf, M_inv)
-        A = torch.einsum("awn,bwn->abn", JM, Jf).contiguous()          # [R3,R3,N]
+            # Delassus A = Jf M⁻¹ Jfᵀ: batched products outside the kernel, as in XLA
+            JM = torch.einsum("avn,vwn->awn", Jf, M_inv)
+            A = torch.einsum("awn,bwn->abn", JM, Jf).contiguous()      # [R3,R3,N]
 
-        active = (phi < opt.contact_margin).to(torch.float32)           # [R,N]
-        v0 = torch.sum(Jf * u_plus[None], dim=1).reshape(R, 3, N)
-        b = v0.clone()
-        b[:, 2] += paramsT["restitution"][None] * torch.clamp(v0[:, 2], max=0.0)
-        b = b.reshape(R * 3, N)
+            active = (phi < opt.contact_margin).to(torch.float32)       # [R,N]
+            v0 = torch.sum(Jf * u_plus[None], dim=1).reshape(R, 3, N)
+            b = v0.clone()
+            b[:, 2] += paramsT["restitution"][None] * torch.clamp(v0[:, 2], max=0.0)
+            b = b.reshape(R * 3, N)
 
-        lam = self.contact_solve(A, b, paramsT["friction"], active, lam_cf.reshape(R * 3, N).contiguous(),
-                                 iters=opt.solver_iters, mv_dtype=self.solve_dtype(N))
+            lam = self.contact_solve(A, b, paramsT["friction"], active, lam_cf.reshape(R * 3, N).contiguous(),
+                                     iters=opt.solver_iters, mv_dtype=self.solve_dtype(N))
 
-        # energy safeguard (`engine_lanes.py:595-601`)
-        qv = torch.sum(A * lam[None], dim=1)
-        lAl = torch.sum(lam * qv, dim=0)
-        t = torch.clamp(-torch.sum(b * lam, dim=0) / torch.clamp(lAl, min=1e-12), 0.0, 1.0)
-        t = torch.where(lAl > 1e-12, t, 1.0)
-        lam = lam * t[None]
+            # energy safeguard (`engine_lanes.py:595-601`)
+            qv = torch.sum(A * lam[None], dim=1)
+            lAl = torch.sum(lam * qv, dim=0)
+            t = torch.clamp(-torch.sum(b * lam, dim=0) / torch.clamp(lAl, min=1e-12), 0.0, 1.0)
+            t = torch.where(lAl > 1e-12, t, 1.0)
+            lam = lam * t[None]
 
-        imp = torch.sum(Jf * lam[:, None], dim=0)
-        u_new = u_plus + torch.sum(M_inv * imp[None], dim=1)
+            imp = torch.sum(Jf * lam[:, None], dim=0)
+            u_new = u_plus + torch.sum(M_inv * imp[None], dim=1)
 
-        # split-impulse position pass (`engine_lanes.py:606-628`), its matvec
-        # in `contact_matvec_dtype` on every branch, plain PyTorch as JAX's is XLA
-        b_err = -opt.baumgarte / opt.dt * torch.clamp(phi + opt.penetration_slop, max=0.0)
-        b_err = torch.clamp(b_err, max=opt.max_depenetration_velocity)
-        act3 = torch.repeat_interleave(active, 3, dim=0)
-        Lp = torch.amax(act3 * torch.sum(torch.abs(A) * act3[None], dim=1), dim=0)
-        inv_Lp = 1.0 / torch.clamp(Lp, min=1e-6)
-        cp = torch.zeros((R, 3, N), device=dev)
-        cp[:, 2] = b_err * active
-        cp = cp.reshape(R * 3, N)
-        lam_p = torch.zeros((R * 3, N), device=dev)
-        A_mv = round_to(A, opt.contact_matvec_dtype)
-        for _ in range(opt.pos_iters):
-            g = matvec_plain(A_mv, lam_p, opt.contact_matvec_dtype) - cp
-            x3 = (lam_p - inv_Lp[None] * g).reshape(R, 3, N)
-            nxt = torch.zeros_like(x3)
-            nxt[:, 2] = torch.clamp(x3[:, 2], min=0.0) * active
-            lam_p = nxt.reshape(R * 3, N)
-        dpos = opt.dt * torch.sum(M_inv * torch.sum(Jf * lam_p[:, None], dim=0)[None], dim=1)
+        with span("engine.position_pass"):
+            # split-impulse position pass (`engine_lanes.py:606-628`), its matvec
+            # in `contact_matvec_dtype` on every branch, plain PyTorch as JAX's is XLA
+            b_err = -opt.baumgarte / opt.dt * torch.clamp(phi + opt.penetration_slop, max=0.0)
+            b_err = torch.clamp(b_err, max=opt.max_depenetration_velocity)
+            act3 = torch.repeat_interleave(active, 3, dim=0)
+            Lp = torch.amax(act3 * torch.sum(torch.abs(A) * act3[None], dim=1), dim=0)
+            inv_Lp = 1.0 / torch.clamp(Lp, min=1e-6)
+            cp = torch.zeros((R, 3, N), device=dev)
+            cp[:, 2] = b_err * active
+            cp = cp.reshape(R * 3, N)
+            lam_p = torch.zeros((R * 3, N), device=dev)
+            A_mv = round_to(A, opt.contact_matvec_dtype)
+            for _ in range(opt.pos_iters):
+                g = matvec_plain(A_mv, lam_p, opt.contact_matvec_dtype) - cp
+                x3 = (lam_p - inv_Lp[None] * g).reshape(R, 3, N)
+                nxt = torch.zeros_like(x3)
+                nxt[:, 2] = torch.clamp(x3[:, 2], min=0.0) * active
+                lam_p = nxt.reshape(R * 3, N)
+            dpos = opt.dt * torch.sum(M_inv * torch.sum(Jf * lam_p[:, None], dim=0)[None], dim=1)
 
         lam3 = lam.reshape(R, 3, N)
         if idxT is not None:

@@ -1,0 +1,24 @@
+"""Host milliseconds per profiled serving step in the program's
+`engine.dynamics` spans, summed over the step's substeps: FK, the mass
+matrix and its inverse, bias forces, energy projection, contact Jacobian."""
+from pbhc_tpu_torch.utils import profiling
+
+
+def stages(ctx, label):
+    """{span: {"count", "seconds", "syncs"}} of the program's spans in this
+    run's profiled slice `label` (the last sessions of records, one a slice,
+    in order); None where the program records no spans."""
+    if not hasattr(profiling, "sessions") or not ctx["slices"]:
+        return None
+    runs = profiling.sessions()[-len(ctx["slices"]):]
+    for s, records in zip(ctx["slices"], runs):
+        if s["label"] == label:
+            return profiling.totals(records)
+    return None
+
+
+def read(ctx):
+    t = stages(ctx, "serve")
+    if not t or "env.step" not in t or "engine.dynamics" not in t:
+        return None
+    return 1e3 * t["engine.dynamics"]["seconds"] / t["env.step"]["count"]

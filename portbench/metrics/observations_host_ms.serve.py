@@ -1,0 +1,23 @@
+"""Host milliseconds per profiled serving step in the program's
+`env.observations` span: observations, history, contact carries, log."""
+from pbhc_tpu_torch.utils import profiling
+
+
+def stages(ctx, label):
+    """{span: {"count", "seconds", "syncs"}} of the program's spans in this
+    run's profiled slice `label` (the last sessions of records, one a slice,
+    in order); None where the program records no spans."""
+    if not hasattr(profiling, "sessions") or not ctx["slices"]:
+        return None
+    runs = profiling.sessions()[-len(ctx["slices"]):]
+    for s, records in zip(ctx["slices"], runs):
+        if s["label"] == label:
+            return profiling.totals(records)
+    return None
+
+
+def read(ctx):
+    t = stages(ctx, "serve")
+    if not t or "env.step" not in t or "env.observations" not in t:
+        return None
+    return 1e3 * t["env.observations"]["seconds"] / t["env.step"]["count"]

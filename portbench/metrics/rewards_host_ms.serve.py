@@ -1,0 +1,24 @@
+"""Host milliseconds per profiled serving step in the program's
+`env.rewards` span: reference fetch, body states, terminations, reward
+terms, the env-axis reductions, sigmas and curricula."""
+from pbhc_tpu_torch.utils import profiling
+
+
+def stages(ctx, label):
+    """{span: {"count", "seconds", "syncs"}} of the program's spans in this
+    run's profiled slice `label` (the last sessions of records, one a slice,
+    in order); None where the program records no spans."""
+    if not hasattr(profiling, "sessions") or not ctx["slices"]:
+        return None
+    runs = profiling.sessions()[-len(ctx["slices"]):]
+    for s, records in zip(ctx["slices"], runs):
+        if s["label"] == label:
+            return profiling.totals(records)
+    return None
+
+
+def read(ctx):
+    t = stages(ctx, "serve")
+    if not t or "env.step" not in t or "env.rewards" not in t:
+        return None
+    return 1e3 * t["env.rewards"]["seconds"] / t["env.step"]["count"]
