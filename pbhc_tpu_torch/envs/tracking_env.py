@@ -9,7 +9,8 @@ differ from JAX's threefry, so parity tests turn randomness off or inject
 JAX's draws.
 
 All three physics branches of the JAX step are here: `solver: lanes` (the
-env-last engine, kernel 1), `solver: pallas` with N % 128 == 0 (the env-first
+env-last engine, kernel 1; on a card its control step replays one CUDA graph,
+`sim/step_graph.py`), `solver: pallas` with N % 128 == 0 (the env-first
 batched step, kernel 2), and the per-env engine for `apgd`, `pgs` and
 `pallas` at other N (`Engine.control_step`, plain PyTorch as in JAX), on a
 flat plane or on the heightfield terrain of a `terrain:` group with
@@ -28,6 +29,7 @@ and a marker buffer `teleop_marker_coords` [N,3,3] on the host, as in JAX;
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict
 
@@ -41,6 +43,7 @@ from pbhc_tpu_torch.motion.motion_lib import MotionLib, get_motion_state, sample
 from pbhc_tpu_torch.parallel.mesh import EnvShard
 from pbhc_tpu_torch.sim.engine import Engine, EngineOptions, SimState, tree_map
 from pbhc_tpu_torch.sim.engine_lanes import LanesEngine
+from pbhc_tpu_torch.sim.step_graph import StepGraphs
 from pbhc_tpu_torch.utils.noise_tool import ou_step
 from pbhc_tpu_torch.utils.profiling import span
 
@@ -179,6 +182,9 @@ class MotionTrackingEnv:
                           lanes_contact_kernel=str(sim_cfg.get("lanes_contact_kernel", "auto"))),
             device=self.device)
         self.lanes_engine = self.engine.lanes() if self.solver == "lanes" else None
+        # the lanes control steps, replayed as CUDA graphs on a card; `counts`
+        # holds the graphed and the eager ones
+        self.step_graphs = StepGraphs(self.lanes_engine, self.gen) if self.lanes_engine is not None else None
 
         # terrain group (`tracking_env.py:146-176`): a heightfield goes into the
         # engine; per-env origins over the curriculum grid, the column fixed
@@ -590,36 +596,47 @@ class MotionTrackingEnv:
         )
 
     # ------------------------------------------------------------------- step
-    def _torque_fn(self, state: EnvState, target, kp_eff, kd_eff):
-        """PD torques with RFI and RAO (`tracking_env.py:767-787`, `:860-887`),
-        and on the per-env branch the gaussian torque injection of
-        `parallel_serial_tau` on its joints (`:778-783`)."""
+    def _torque_inputs(self, state: EnvState, target, kp_eff, kd_eff) -> dict:
+        """The tensors a control step's PD torques (`_torques`) read besides
+        the substep state: the targets and effective gains, the RFI noise
+        scale and the RAO torque where the config turns them on, and on the
+        per-env branch the joints and scales of `parallel_serial_tau`'s
+        torque injection (JAX's lanes and env-first torque functions leave
+        the injection out, `tracking_env.py:860-889`)."""
         dr = self.dr
-        rfi = bool(dr.get("randomize_torque_rfi", False))
-        rao = bool(dr.get("use_rao", False))
-        rfi_scale = float(dr.rfi_lim) * state.rfi_lim_scale * self.torque_limits if rfi else None
-        rao_tau = state.rao_scale * self.torque_limits if rao else None
-        # JAX's lanes and env-first torque functions leave the injection out
-        # (`tracking_env.py:860-889`)
-        inject = self.use_pstau and self.physics == "per_env"
-        if inject:
+        inputs = {"target": target, "kp_eff": kp_eff, "kd_eff": kd_eff}
+        if dr.get("randomize_torque_rfi", False):
+            inputs["rfi_scale"] = float(dr.rfi_lim) * state.rfi_lim_scale * self.torque_limits
+        if dr.get("use_rao", False):
+            inputs["rao_tau"] = state.rao_scale * self.torque_limits
+        if self.use_pstau and self.physics == "per_env":
             pstau = dr.parallel_serial_tau
             pst_idx = torch.as_tensor(np.asarray(list(pstau.joint_idx), dtype=np.int64), device=self.device)
-            pst_scale = float(pstau.rfi_lim) * self.torque_limits[pst_idx]
+            inputs["pst_idx"] = pst_idx
+            inputs["pst_scale"] = float(pstau.rfi_lim) * self.torque_limits[pst_idx]
+        return inputs
 
-        def torque_fn(st):
-            tau = kp_eff * (target - st.dof_pos) - kd_eff * st.dof_vel
-            if rfi:
-                noise = 2.0 * torch.rand(tau.shape, generator=self.gen, device=self.device) - 1.0
-                tau = tau + noise * rfi_scale
-            if inject:
-                g = torch.randn((tau.shape[0], len(pst_idx)), generator=self.gen, device=self.device)
-                tau = tau.index_add(1, pst_idx, pst_scale * g)
-            if rao:
-                tau = tau + rao_tau
-            return torch.clamp(tau, -self.torque_limits, self.torque_limits)
+    def _torques(self, inputs: dict, st: SimState):
+        """PD torques with RFI and RAO (`tracking_env.py:767-787`, `:860-887`),
+        and the torque injection where `inputs` has its joints (`:778-783`):
+        a function of the substep state `st` and the step's `inputs`
+        (`_torque_inputs`) alone, its noise drawn from the env's generator,
+        so that a captured control step replays it (`sim/step_graph.py`)."""
+        tau = inputs["kp_eff"] * (inputs["target"] - st.dof_pos) - inputs["kd_eff"] * st.dof_vel
+        if "rfi_scale" in inputs:
+            noise = 2.0 * torch.rand(tau.shape, generator=self.gen, device=self.device) - 1.0
+            tau = tau + noise * inputs["rfi_scale"]
+        if "pst_idx" in inputs:
+            g = torch.randn((tau.shape[0], inputs["pst_idx"].shape[0]), generator=self.gen, device=self.device)
+            tau = tau.index_add(1, inputs["pst_idx"], inputs["pst_scale"] * g)
+        if "rao_tau" in inputs:
+            tau = tau + inputs["rao_tau"]
+        return torch.clamp(tau, -self.torque_limits, self.torque_limits)
 
-        return torque_fn
+    def _torque_fn(self, state: EnvState, target, kp_eff, kd_eff):
+        """The torque function of one control step, torque_fn(st) -> [N,nd]:
+        `_torques` on the step's inputs."""
+        return functools.partial(self._torques, self._torque_inputs(state, target, kp_eff, kd_eff))
 
     def _gate(self, prob) -> torch.Tensor:
         """One Bernoulli draw with probability `prob`, shared by every env."""
@@ -705,15 +722,18 @@ class MotionTrackingEnv:
                 kp_eff = state.kp_scale * self.p_gains
                 kd_eff = state.kd_scale * self.d_gains
                 target = after_delay * self.action_scales + state.default_dof_pos
-                torque_fn = self._torque_fn(state, target, kp_eff, kd_eff)
+                torque_in = self._torque_inputs(state, target, kp_eff, kd_eff)
+                torque_fn = functools.partial(self._torques, torque_in)
                 pre = self._sdc_pre_fn(state, sim) if self.use_sdc else None
             with span("env.engine"):
-                # `solver: lanes` runs the env-last engine (kernel 1), `solver: pallas`
-                # at N % 128 == 0 the env-first batched step (kernel 2), anything else
-                # the per-env engine (`tracking_env.py:791-896`)
+                # `solver: lanes` runs the env-last engine (kernel 1), on a card
+                # replayed as one CUDA graph where `step_graph.eligible` allows,
+                # `solver: pallas` at N % 128 == 0 the env-first batched step
+                # (kernel 2), anything else the per-env engine (`tracking_env.py:791-896`)
                 if self.physics == "lanes":
-                    sim, torques = self.lanes_engine.control_step_batched(
-                        self.sim_params, sim, torque_fn, self.decimation, paramsT=self.paramsT, pre_substep_fn=pre)
+                    sim, torques = self.step_graphs.step(
+                        self.sim_params, self.paramsT, sim, self._torques, torque_in, self.decimation,
+                        pre_substep_fn=pre)
                 elif self.physics == "batched":
                     sim, torques = self.engine.control_step_batched(
                         self.sim_params, sim, torque_fn, self.decimation, paramsT=self.paramsT)

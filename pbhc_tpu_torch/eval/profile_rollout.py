@@ -5,10 +5,19 @@ Builds the env and actor of a checkpoint (default: the side-kick run's) as
 the rollout `warmup` times, then traces `steps` control steps with
 `torch.profiler` and prints one JSON line: host wall time per control step
 (synchronised), device-busy time per step (sum of the CUDA kernels' times on
-the one stream), the busy share, CUDA kernels launched per step, the contact
-kernels' device time per step, the top ops by device time, and `by_span`:
-the step split by stage (the program's innermost spans, `env.engine`,
-`engine.contact`, ...: device ms, kernels launched and host syncs per step).
+the one stream), the busy share, CUDA kernels per step, the host's launch
+calls per step, the contact kernels' device time per step, the top ops by
+device time, and `by_span`: the step split by stage (the program's innermost
+spans, `env.engine`, `engine.contact`, ...: device ms, kernels launched and
+host syncs per step).
+
+The stage split needs eager steps: a lanes control step that replays its
+CUDA graph (`sim/step_graph.py`) runs no op of the engine from Python. So
+the lanes engine's `control_step_batched` is shadowed on the instance for
+the traced steps, which keeps them eager by the graph's own rule
+(`step_graph.eligible`), and the same number of steps as the env runs them,
+graphed, is traced besides: `graphed` holds their summary (the engine's
+device time and kernels under `engine.graph_replay` in its `by_span`).
 
     python -m pbhc_tpu_torch.eval.profile_rollout [num_envs=4096] [steps=5] [warmup=3] [checkpoint=<pkl>] \
         [a.b.c=value ...]
@@ -31,6 +40,9 @@ from pbhc_tpu_torch.eval import batch_eval
 from pbhc_tpu_torch.utils import profiling
 
 CKPT = "artifacts/kb1_side_kick/ckpt/model_10500.pkl"
+# the CUDA calls that launch work on the device
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+            "cudaLaunchCooperativeKernel", "cudaGraphLaunch", "cuGraphLaunch")
 
 
 def profile_rollout(num_envs=4096, steps=5, warmup=3, checkpoint=CKPT, overrides=()):
@@ -48,29 +60,42 @@ def profile_rollout(num_envs=4096, steps=5, warmup=3, checkpoint=CKPT, overrides
             for _ in range(n):
                 state, obs, _, _, _ = env.step(state, batch_eval.act_mean(actor, obs))
 
-    run(warmup)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run(steps)
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def traced():
+        run(warmup)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         run(steps)
         torch.cuda.synchronize()
-    return {"checkpoint": str(checkpoint), "num_envs": num_envs, "steps": steps, "overrides": list(overrides),
-            **device_summary(prof, steps, wall_ms, "step", profiling.sessions()[-1]),
-            "device": torch.cuda.get_device_name(dev)}
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(steps)
+            torch.cuda.synchronize()
+        return device_summary(prof, steps, wall_ms, "step", profiling.sessions()[-1])
+
+    out = {"checkpoint": str(checkpoint), "num_envs": num_envs, "steps": steps, "overrides": list(overrides)}
+    lanes = env.lanes_engine
+    if lanes is None:
+        return {**out, **traced(), "device": torch.cuda.get_device_name(dev)}
+    graphed = traced()
+    lanes.control_step_batched = lanes.control_step_batched
+    try:
+        eager = traced()
+    finally:
+        del lanes.control_step_batched
+    return {**out, **eager, "device": torch.cuda.get_device_name(dev), "graphed": graphed,
+            "lanes_steps": dict(env.step_graphs.counts)}
 
 
 def device_summary(prof, n, wall_ms, unit, records):
     """Per `unit` (a step or an iteration, `n` of them traced) from a
     `torch.profiler` trace: the host wall ms (measured outside the trace), the
     device-busy ms (the CUDA kernels' times on the one stream), the busy share,
-    CUDA kernels launched, each contact kernel's device ms, the top aten
-    ops by device time, and the split by the program's spans, whose
-    `records` the trace made (`by_span`)."""
+    CUDA kernels run, the host's launch calls (`LAUNCHES`: a graph replay is
+    one), each contact kernel's device ms, the top aten ops by device time,
+    and the split by the program's spans, whose `records` the trace made
+    (`by_span`)."""
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.name in LAUNCHES for e in prof.events())
     busy_ms = sum(e.device_time for e in kernels) / 1e3 / n
     by_op = defaultdict(float)
     for e in prof.key_averages():
@@ -80,7 +105,8 @@ def device_summary(prof, n, wall_ms, unit, records):
     out = {f"wall_ms_per_{unit}": wall_ms,
            f"device_busy_ms_per_{unit}": busy_ms if kernels else None,
            "device_busy_share": busy_ms / wall_ms if kernels else None,
-           f"cuda_kernels_per_{unit}": len(kernels) / n}
+           f"cuda_kernels_per_{unit}": len(kernels) / n,
+           f"host_launches_per_{unit}": launches / n}
     for name in ("apgd_lanes", "apgd_envfirst"):
         out[f"{name}_ms_per_{unit}"] = sum(e.device_time for e in kernels if name in e.name) / 1e3 / n
     out[f"top_ops_device_ms_per_{unit}"] = {k: v / 1e3 / n for k, v in top}

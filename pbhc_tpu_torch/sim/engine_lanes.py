@@ -126,27 +126,33 @@ class LanesEngine:
         self._P = t(np.moveaxis(np.einsum("di,dj->dij", axis, axis), 0, -1))
         self._axis = t(axis.T)                                   # [3,nd]
         self._eye3 = torch.eye(3, device=dev)
+        self._grav = torch.tensor([0.0, 0.0, GRAVITY], device=dev)[:, None]   # [3,1]
 
         R_local = rot.quat_to_matrix(t(model.local_quat))       # [B,3,3]
         self._R_local = R_local.permute(1, 2, 0).contiguous()    # [3,3,B]
         self._local_pos = t(np.asarray(model.local_pos).T)       # [3,B]
 
+        # the index tables of the level loops and gathers, int64 on the
+        # device: a host array indexing a CUDA tensor is a pageable copy that
+        # synchronises, and a step with none can be captured in a CUDA graph
+        idx = lambda x: torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
         _, pos, parent_pos = _level_order(model)
-        self._levels = [np.asarray(lv) for lv in model.levels]
-        self._parent_pos = [np.asarray(p) for p in parent_pos]
-        self._pos = np.asarray(pos)
-        self._joint_slot = np.asarray(engine.joint_slot)
-        self._dof_body = np.asarray(model.dof_body)
-        self._parent = np.asarray(model.parent[: self.nb])
+        parent = np.asarray(model.parent[: self.nb])
+        self._levels = [idx(lv) for lv in model.levels]
+        self._parent_pos = [idx(p) for p in parent_pos]
+        self._level_parent = [idx(parent[np.asarray(lv)]) for lv in model.levels]
+        self._pos = idx(pos)
+        self._joint_slot = idx(engine.joint_slot)
+        self._dof_body = idx(model.dof_body)
 
         self._subtree = engine.subtree                           # [B,B]
         self._dof_anc_mask = t(engine.dof_anc_np)[:, :, None] > 0  # [nd,nd,1]
-        self._contact_body = engine.contact_body
+        self._contact_body = idx(engine.contact_body)
         self._contact_pos = engine.contact_pos.T.contiguous()   # [3,K]
         self._contact_radius = engine.contact_radius[:, None]    # [K,1]
         self._dof_limits = engine.dof_limits                     # [nd,2]
         self.P, self.KT = engine.P, engine.KT
-        self._pair_i, self._pair_j = engine.pair_i, engine.pair_j
+        self._pair_i, self._pair_j = idx(engine.pair_i), idx(engine.pair_j)
         if self.P:
             self._pair_rsum = engine.pair_rsum[:, None]          # [P,1]
         anc = torch.cat([torch.ones((self.K, 6), device=dev), engine.contact_anc], dim=1)
@@ -170,8 +176,8 @@ class LanesEngine:
             g = np.asarray(sorted(comp), dtype=np.int64)
             if g[-1] - g[0] + 1 != len(g):
                 raise ValueError(f"non-contiguous dof group {g}")
-            groups.append(g)
-        self._dof_groups = groups
+            groups.append((int(g[0]), int(g[-1]) + 1))
+        self._dof_groups = groups                                # [(first, end)] host ints
 
     # ------------------------------------------------------------------ FK
     def _fk(self, dof_pos, root_quat, root_pos):
@@ -204,10 +210,10 @@ class LanesEngine:
         twist = _mv3(R_w, ax_b[:, :, None]) * qd_b[None]               # [3,B,N]
 
         v_acc, w_acc = stT["rv"][:, None], stT["rw"][:, None]
-        for lv, ppos in zip(self._levels, self._parent_pos):
+        for lv, ppos, par in zip(self._levels, self._parent_pos, self._level_parent):
             wp = w_acc[:, ppos]
             w_new = wp + twist[:, lv]
-            v_new = v_acc[:, ppos] + _cross3(wp, p_w[:, lv] - p_w[:, self._parent[lv]])
+            v_new = v_acc[:, ppos] + _cross3(wp, p_w[:, lv] - p_w[:, par])
             w_acc = torch.cat([w_acc, w_new], dim=1)
             v_acc = torch.cat([v_acc, v_new], dim=1)
         v, w = v_acc[:, self._pos], w_acc[:, self._pos]
@@ -277,9 +283,8 @@ class LanesEngine:
         """RNEA with qdd = 0 -> bias [nv,N] (`engine_lanes.py:353`)."""
         N = stateT["qd"].shape[-1]
         v_root = torch.cat([stateT["rw"], stateT["rv"]], dim=0)
-        grav = torch.tensor([0.0, 0.0, GRAVITY], device=self.device)[:, None]
         g_acc = torch.cat([torch.zeros((3, N), device=self.device),
-                           _cross3(stateT["rv"], stateT["rw"]) + grav], dim=0)
+                           _cross3(stateT["rv"], stateT["rw"]) + self._grav], dim=0)
         twist_d = Phi_d * stateT["qd"][None]
         twist = torch.cat([twist_d, torch.zeros((6, 1, N), device=self.device)], dim=1)[:, self._joint_slot]
         v_acc, a_acc = v_root[:, None], g_acc[:, None]
@@ -303,8 +308,7 @@ class LanesEngine:
         nd, N = self.nd, M.shape[-1]
         R, B = M[:6, :6], M[6:, :6]
         D_inv = torch.zeros((nd, nd, N), dtype=M.dtype, device=M.device)
-        for g in self._dof_groups:
-            a, b = int(g[0]), int(g[-1]) + 1
+        for a, b in self._dof_groups:
             D_inv[a:b, a:b] = _spd_inverse_lanes(M[6 + a:6 + b, 6 + a:6 + b])
         E = torch.einsum("ijn,jkn->ikn", D_inv, B)
         S = R - torch.einsum("jin,jkn->ikn", B, E)
