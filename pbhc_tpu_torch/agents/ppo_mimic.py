@@ -23,7 +23,9 @@ Three modes on one `MimicActorCritic`, with the JAX module's semantics:
   stays frozen (`:367-405`).
 
 Each mode is a `rollout` phase and a `learn` phase, as in `MHPPO`, so that
-the training CLI times both. Adam is `mh_ppo.Adam` (optax's global-norm clip
+the training CLI times both; under a profiler they record MHPPO's spans
+(`learner.rollout`, `policy`, `learner.update`, `learner.gae`,
+`learner.minibatch`) and `learner.dagger` around the DAgger pass. Adam is `mh_ppo.Adam` (optax's global-norm clip
 and Adam written out). Randomness comes from `torch.Generator`s on the env's
 device (actions from a per-rank one, minibatch permutations from one seeded
 alike on every rank; one generator for both in a single process); fresh
@@ -50,6 +52,7 @@ import torch
 from pbhc_tpu_torch.agents.mh_ppo import MHPPO, Adam
 from pbhc_tpu_torch.agents.mimic_networks import MimicActorCritic, mimic_net_from_config
 from pbhc_tpu_torch.agents.networks import flax_init_, gaussian_entropy, gaussian_log_prob
+from pbhc_tpu_torch.utils.profiling import span
 
 OBS_KEYS = ("actor_obs", "priv_obs", "future_motion_targets", "prop_history")
 
@@ -182,27 +185,30 @@ class PPOMimic:
         obs, trajectory {key: [T,N,...]}, env logs {key: [T]}, hist_encoding)."""
         if hist_encoding is None:
             hist_encoding = self.mode(ts) != "rl"
-        env_state, obs = ts.env_state, ts.obs
-        traj, logs = {}, {}
-        for t in range(self.num_steps):
-            mean, std = ts.net.act(obs, hist_encoding)
-            actions = mean if self.dagger_only else \
-                mean + std * torch.randn(mean.shape, generator=self.gen, device=self.device)
-            values = ts.net.evaluate(obs)
-            data = {k: obs[k] for k in OBS_KEYS}
-            data.update(actions=actions, logp=gaussian_log_prob(mean, std, actions), mean=mean, std=std,
-                        values=values)
-            if self.teacher is not None:
-                data["teacher_actions"] = self.teacher(obs)
-            env_state, obs, rew, done, info = self.env.step(env_state, actions)
-            data.update(rewards=rew + self.gamma * values * info["time_outs"][:, None], dones=done)
-            for k, v in data.items():
-                if k not in traj:
-                    traj[k] = torch.empty((self.num_steps, *v.shape), dtype=v.dtype, device=v.device)
-                traj[k][t] = v
-            for k, v in info["log"].items():
-                logs.setdefault(k, []).append(v)
-        return env_state, obs, traj, self.env.global_logs({k: torch.stack(v) for k, v in logs.items()}), hist_encoding
+        with span("learner.rollout"):
+            env_state, obs = ts.env_state, ts.obs
+            traj, logs = {}, {}
+            for t in range(self.num_steps):
+                with span("policy"):
+                    mean, std = ts.net.act(obs, hist_encoding)
+                    actions = mean if self.dagger_only else \
+                        mean + std * torch.randn(mean.shape, generator=self.gen, device=self.device)
+                    values = ts.net.evaluate(obs)
+                    data = {k: obs[k] for k in OBS_KEYS}
+                    data.update(actions=actions, logp=gaussian_log_prob(mean, std, actions), mean=mean, std=std,
+                                values=values)
+                    if self.teacher is not None:
+                        data["teacher_actions"] = self.teacher(obs)
+                env_state, obs, rew, done, info = self.env.step(env_state, actions)
+                data.update(rewards=rew + self.gamma * values * info["time_outs"][:, None], dones=done)
+                for k, v in data.items():
+                    if k not in traj:
+                        traj[k] = torch.empty((self.num_steps, *v.shape), dtype=v.dtype, device=v.device)
+                    traj[k][t] = v
+                for k, v in info["log"].items():
+                    logs.setdefault(k, []).append(v)
+            logs = self.env.global_logs({k: torch.stack(v) for k, v in logs.items()})
+            return env_state, obs, traj, logs, hist_encoding
 
     # GAE with advantages summed over heads and normalised with the population
     # std: the same computation as MHPPO's (`ppo_mimic.py:204`, `mh_ppo.py:148`)
@@ -219,41 +225,42 @@ class PPOMimic:
         """One RL minibatch (`ppo_mimic.py:236`), this rank's rows of a
         minibatch of `rows` rows in all (default: `batch`'s); updates `ts` in
         place."""
-        rows = len(batch["actions"]) if rows is None else rows
-        avg = functools.partial(self.shard.share, rows=rows)
-        net = ts.net
-        obs = {k: batch[k] for k in OBS_KEYS}
-        (mean, std), lb_a = net.act_lb(obs, False, dp=(self.shard, rows))
-        ratio = torch.exp(gaussian_log_prob(mean, std, batch["actions"]) - batch["logp"])
-        adv = batch["advantages"]
-        surr = avg(torch.maximum(-adv * ratio, -adv * torch.clamp(ratio, 1 - self.clip, 1 + self.clip)))
-        entropy = avg(gaussian_entropy(std))
-        value, lb_v = net.evaluate_lb(obs, dp=(self.shard, rows))
-        tv, ret = batch["values"], batch["returns"]
-        v_clip = tv + torch.clamp(value - tv, -self.clip, self.clip)
-        vloss = avg(torch.maximum((value - ret) ** 2, (v_clip - ret) ** 2).sum(-1))
-        priv_lat = net.priv_latent(batch["priv_obs"])
-        with torch.no_grad():
-            hist_lat = net.hist_latent(batch["prop_history"])
-        priv_reg = avg(torch.linalg.vector_norm(priv_lat - hist_lat, dim=-1))
-        lb = lb_a + lb_v
-        loss = (surr - self.entropy_coef * entropy + self.value_loss_coef * vloss
-                + self.priv_reg_coef(ts.iteration) * priv_reg + self.lb_alpha * lb)
-        with torch.no_grad():
-            kl = avg(torch.sum(torch.log(std / batch["std"] + 1e-5)
-                               + (batch["std"] ** 2 + (batch["mean"] - mean) ** 2) / (2.0 * std ** 2) - 0.5,
-                               dim=-1))
-        # the ranks' shares summed: global gradients, KL and losses (one all-reduce)
-        *grads, kl, surr, vloss, entropy, priv_reg, lb = self.shard.all_sum(
-            [*_grads(loss, ts.opt.params), kl, *(x.detach() for x in (surr, vloss, entropy, priv_reg, lb))],
-            dtype=torch.float32)
-        lr = ts.lr
-        ts.lr = torch.where(kl > self.desired_kl * 2.0, torch.clamp(lr / 1.5, min=1e-5),
-                            torch.where((kl < self.desired_kl / 2.0) & (kl > 0.0),
-                                        torch.clamp(lr * 1.5, max=1e-2), lr))
-        ts.opt.step(grads, ts.lr)
-        return dict(surrogate=surr, value_loss=vloss, entropy=entropy, kl=kl, priv_reg=priv_reg,
-                    load_balancing=lb)
+        with span("learner.minibatch"):
+            rows = len(batch["actions"]) if rows is None else rows
+            avg = functools.partial(self.shard.share, rows=rows)
+            net = ts.net
+            obs = {k: batch[k] for k in OBS_KEYS}
+            (mean, std), lb_a = net.act_lb(obs, False, dp=(self.shard, rows))
+            ratio = torch.exp(gaussian_log_prob(mean, std, batch["actions"]) - batch["logp"])
+            adv = batch["advantages"]
+            surr = avg(torch.maximum(-adv * ratio, -adv * torch.clamp(ratio, 1 - self.clip, 1 + self.clip)))
+            entropy = avg(gaussian_entropy(std))
+            value, lb_v = net.evaluate_lb(obs, dp=(self.shard, rows))
+            tv, ret = batch["values"], batch["returns"]
+            v_clip = tv + torch.clamp(value - tv, -self.clip, self.clip)
+            vloss = avg(torch.maximum((value - ret) ** 2, (v_clip - ret) ** 2).sum(-1))
+            priv_lat = net.priv_latent(batch["priv_obs"])
+            with torch.no_grad():
+                hist_lat = net.hist_latent(batch["prop_history"])
+            priv_reg = avg(torch.linalg.vector_norm(priv_lat - hist_lat, dim=-1))
+            lb = lb_a + lb_v
+            loss = (surr - self.entropy_coef * entropy + self.value_loss_coef * vloss
+                    + self.priv_reg_coef(ts.iteration) * priv_reg + self.lb_alpha * lb)
+            with torch.no_grad():
+                kl = avg(torch.sum(torch.log(std / batch["std"] + 1e-5)
+                                   + (batch["std"] ** 2 + (batch["mean"] - mean) ** 2) / (2.0 * std ** 2) - 0.5,
+                                   dim=-1))
+            # the ranks' shares summed: global gradients, KL and losses (one all-reduce)
+            *grads, kl, surr, vloss, entropy, priv_reg, lb = self.shard.all_sum(
+                [*_grads(loss, ts.opt.params), kl, *(x.detach() for x in (surr, vloss, entropy, priv_reg, lb))],
+                dtype=torch.float32)
+            lr = ts.lr
+            ts.lr = torch.where(kl > self.desired_kl * 2.0, torch.clamp(lr / 1.5, min=1e-5),
+                                torch.where((kl < self.desired_kl / 2.0) & (kl > 0.0),
+                                            torch.clamp(lr * 1.5, max=1e-2), lr))
+            ts.opt.step(grads, ts.lr)
+            return dict(surrogate=surr, value_loss=vloss, entropy=entropy, kl=kl, priv_reg=priv_reg,
+                        load_balancing=lb)
 
     def update_dagger(self, ts: MimicTrainState, priv_obs, prop_history, rows: int | None = None):
         """One history-encoder minibatch (`ppo_mimic.py:326`): the history
@@ -271,14 +278,15 @@ class PPOMimic:
         """One behaviour-cloning minibatch (`ppo_mimic.py:382-396`): L2 to the
         teacher's action; the history encoder's grads are zeroed, so it
         stays as grafted. `rows` as in `update_rl`."""
-        rows = len(batch["teacher_actions"]) if rows is None else rows
-        student = ts.net.act({k: batch[k] for k in OBS_KEYS}, True)[0]
-        loss = self.shard.share(torch.linalg.vector_norm(batch["teacher_actions"] - student, dim=-1), rows)
-        *grads, loss = self.shard.all_sum([*_grads(loss, ts.opt.params), loss.detach()], dtype=torch.float32)
-        frozen = {id(p) for p in ts.hist_opt.params}
-        grads = [torch.zeros_like(p) if id(p) in frozen else g for p, g in zip(ts.opt.params, grads)]
-        ts.opt.step(grads, ts.lr)
-        return loss
+        with span("learner.minibatch"):
+            rows = len(batch["teacher_actions"]) if rows is None else rows
+            student = ts.net.act({k: batch[k] for k in OBS_KEYS}, True)[0]
+            loss = self.shard.share(torch.linalg.vector_norm(batch["teacher_actions"] - student, dim=-1), rows)
+            *grads, loss = self.shard.all_sum([*_grads(loss, ts.opt.params), loss.detach()], dtype=torch.float32)
+            frozen = {id(p) for p in ts.hist_opt.params}
+            grads = [torch.zeros_like(p) if id(p) in frozen else g for p, g in zip(ts.opt.params, grads)]
+            ts.opt.step(grads, ts.lr)
+            return loss
 
     # ------------------------------------------------------------------ learn
     def _global_slices(self, T):
@@ -291,63 +299,66 @@ class PPOMimic:
 
     def _dagger_pass(self, ts, flat, T):
         """`num_minibatches` consecutive DAgger minibatches (`ppo_mimic.py:315-321`)."""
-        slices, mb = self._global_slices(T)
-        return torch.stack([self.update_dagger(ts, flat["priv_obs"][idx], flat["prop_history"][idx], mb)
-                            for idx in slices]).mean()
+        with span("learner.dagger"):
+            slices, mb = self._global_slices(T)
+            return torch.stack([self.update_dagger(ts, flat["priv_obs"][idx], flat["prop_history"][idx], mb)
+                                for idx in slices]).mean()
 
     def learn(self, ts: MimicTrainState, rollout, perms=None):
         """The update phase of the iteration `rollout` came from: RL (with the
         DAgger pass when the rollout went through the history latent) or
         distillation. `perms`: the RL epochs' permutations (drawn when None).
         Updates `ts` in place; returns it with the log (0-d tensors)."""
-        env_state, obs, traj, env_logs, hist_encoding = rollout
-        T, N = traj["values"].shape[:2]
-        log = {f"Env/{k}": v.mean() for k, v in env_logs.items()}
-        log["Train/mean_step_reward"] = self.shard.global_mean(traj["rewards"].sum(-1))
-        if self.dagger_only:
-            keys = (*OBS_KEYS, "teacher_actions")
-            flat = {k: traj[k].reshape(T * N, *traj[k].shape[2:]) for k in keys}
-            slices, mb = self._global_slices(T)
-            losses = [self.update_distill(ts, {k: v[idx] for k, v in flat.items()}, mb) for idx in slices]
-            log.update({"Loss/bc": torch.stack(losses).mean(),
-                        "Loss/kl": torch.zeros((), device=self.device), "Loss/lr": ts.lr})
-        else:
-            with torch.no_grad():
-                last_values = ts.net.evaluate(obs)
-            returns, advantages = self._gae(traj, last_values)
-            flat = {k: v.reshape(T * N, *v.shape[2:]) for k, v in traj.items()}
-            flat["returns"] = returns.reshape(T * N, -1)
-            flat["advantages"] = advantages.reshape(T * N)
-            samples = T * self.shard.num_envs                 # over every rank
-            if perms is None:
-                perms = [torch.randperm(samples, generator=self.perm_gen, device=self.device)
-                         for _ in range(self.num_epochs)]
-            mb = samples // self.num_minibatches
-            metrics = [self.update_rl(ts, {k: v[self.shard.local_rows(perm[i * mb:(i + 1) * mb])]
-                                           for k, v in flat.items()}, mb)
-                       for perm in perms for i in range(self.num_minibatches)]
-            mean = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
-            log.update({"Loss/surrogate": mean["surrogate"], "Loss/value": mean["value_loss"],
-                        "Loss/kl": mean["kl"], "Loss/priv_reg": mean["priv_reg"], "Loss/lr": ts.lr})
-            if self.use_moe:
-                log["Loss/load_balancing"] = mean["load_balancing"]
-            if hist_encoding:
-                log["Loss/hist_latent"] = self._dagger_pass(ts, flat, T)
-        ts.env_state, ts.obs, ts.iteration = env_state, obs, ts.iteration + 1
-        return ts, log
+        with span("learner.update"):
+            env_state, obs, traj, env_logs, hist_encoding = rollout
+            T, N = traj["values"].shape[:2]
+            log = {f"Env/{k}": v.mean() for k, v in env_logs.items()}
+            log["Train/mean_step_reward"] = self.shard.global_mean(traj["rewards"].sum(-1))
+            if self.dagger_only:
+                keys = (*OBS_KEYS, "teacher_actions")
+                flat = {k: traj[k].reshape(T * N, *traj[k].shape[2:]) for k in keys}
+                slices, mb = self._global_slices(T)
+                losses = [self.update_distill(ts, {k: v[idx] for k, v in flat.items()}, mb) for idx in slices]
+                log.update({"Loss/bc": torch.stack(losses).mean(),
+                            "Loss/kl": torch.zeros((), device=self.device), "Loss/lr": ts.lr})
+            else:
+                with torch.no_grad():
+                    last_values = ts.net.evaluate(obs)
+                returns, advantages = self._gae(traj, last_values)
+                flat = {k: v.reshape(T * N, *v.shape[2:]) for k, v in traj.items()}
+                flat["returns"] = returns.reshape(T * N, -1)
+                flat["advantages"] = advantages.reshape(T * N)
+                samples = T * self.shard.num_envs                 # over every rank
+                if perms is None:
+                    perms = [torch.randperm(samples, generator=self.perm_gen, device=self.device)
+                             for _ in range(self.num_epochs)]
+                mb = samples // self.num_minibatches
+                metrics = [self.update_rl(ts, {k: v[self.shard.local_rows(perm[i * mb:(i + 1) * mb])]
+                                               for k, v in flat.items()}, mb)
+                           for perm in perms for i in range(self.num_minibatches)]
+                mean = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
+                log.update({"Loss/surrogate": mean["surrogate"], "Loss/value": mean["value_loss"],
+                            "Loss/kl": mean["kl"], "Loss/priv_reg": mean["priv_reg"], "Loss/lr": ts.lr})
+                if self.use_moe:
+                    log["Loss/load_balancing"] = mean["load_balancing"]
+                if hist_encoding:
+                    log["Loss/hist_latent"] = self._dagger_pass(ts, flat, T)
+            ts.env_state, ts.obs, ts.iteration = env_state, obs, ts.iteration + 1
+            return ts, log
 
     def dagger_iteration(self, ts: MimicTrainState):
         """A DAgger-only iteration (`ppo_mimic.py:347`): a history-latent
         rollout and one DAgger pass over it, no RL update."""
         env_state, obs, traj, env_logs, _ = self.rollout(ts, hist_encoding=True)
-        T, N = traj["values"].shape[:2]
-        flat = {k: traj[k].reshape(T * N, -1) for k in ("priv_obs", "prop_history")}
-        log = {f"Env/{k}": v.mean() for k, v in env_logs.items()}
-        log.update({"Loss/hist_latent": self._dagger_pass(ts, flat, T),
-                    "Train/mean_step_reward": self.shard.global_mean(traj["rewards"].sum(-1)),
-                    "Loss/kl": torch.zeros((), device=self.device), "Loss/lr": ts.lr})
-        ts.env_state, ts.obs, ts.iteration = env_state, obs, ts.iteration + 1
-        return ts, log
+        with span("learner.update"):
+            T, N = traj["values"].shape[:2]
+            flat = {k: traj[k].reshape(T * N, -1) for k in ("priv_obs", "prop_history")}
+            log = {f"Env/{k}": v.mean() for k, v in env_logs.items()}
+            log.update({"Loss/hist_latent": self._dagger_pass(ts, flat, T),
+                        "Train/mean_step_reward": self.shard.global_mean(traj["rewards"].sum(-1)),
+                        "Loss/kl": torch.zeros((), device=self.device), "Loss/lr": ts.lr})
+            ts.env_state, ts.obs, ts.iteration = env_state, obs, ts.iteration + 1
+            return ts, log
 
     def train_iteration(self, ts: MimicTrainState):
         """Rollout + update in the iteration's mode: `learn(ts, rollout(ts))`."""

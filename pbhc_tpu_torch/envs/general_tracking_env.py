@@ -10,7 +10,8 @@ anchor-frame and future-target observations (`:135-198`).
 The future targets are flattened step-major ([N, S, D] -> [N, S*D]) at the
 `S = future_num_steps` control-step offsets `linspace(1, future_max_steps, S)`,
 so that the Conv1d motion encoder sees time on one axis; `next_step_ref_motion`
-is the compact target of the first of those steps.
+is the compact target of the first of those steps. The fetch and its frame
+transforms are the span `env.future_targets`, inside `env.observations`.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 from pbhc_tpu_torch.envs.tracking_env import EnvState, MotionTrackingEnv
 from pbhc_tpu_torch.maths import rotations as rot
 from pbhc_tpu_torch.motion.motion_lib import get_motion_state
+from pbhc_tpu_torch.utils.profiling import span
 
 
 class GeneralTrackingEnv(MotionTrackingEnv):
@@ -132,29 +134,30 @@ class GeneralTrackingEnv(MotionTrackingEnv):
             rot.quat_mul(aq_inv, mres["rg_rot_t"][:, ai]))[..., :2].reshape(N, -1)
 
         # future targets, step-major (`:172-198`)
-        t = ((state.episode_length.to(torch.float32)[:, None] * self.dt + state.motion_start_times[:, None])
-             + self.tar_obs_steps[None] * self.dt)                            # [N,S]
-        ids = state.motion_ids[:, None].expand(t.shape)
-        # on terrain, moved onto the env's tile as every reference fetch is (`:173`)
-        off = state.origin_shift[:, None] if self.terrain is not None else None
-        fm = get_motion_state(self.motion_lib.data, ids, t, offset=off)
-        froot_rot = fm["root_rot"]
-        frpy = rot.get_euler_xyz(froot_rot)
-        froot_vel = rot.quat_rotate_inverse(froot_rot, fm["root_vel"])
-        froot_ang = rot.quat_rotate_inverse(froot_rot, fm["root_ang_vel"])
-        f_anchor_inv = rot.quat_conjugate(fm["rg_rot_t"][..., ai, :])[..., None, :]
-        f_local_key = rot.quat_rotate(f_anchor_inv.expand(fm["rg_pos_t"].shape[:-1] + (4,)),
-                                      fm["rg_pos_t"] - fm["rg_pos_t"][..., ai, :][..., None, :])[..., kid, :]
-        getters["future_motion_root_height"] = fm["root_pos"][..., 2:3].reshape(N, -1)
-        getters["future_motion_roll_pitch"] = frpy[..., :2].reshape(N, -1)
-        getters["future_motion_base_lin_vel"] = froot_vel.reshape(N, -1)
-        getters["future_motion_base_yaw_vel"] = froot_ang[..., 2:3].reshape(N, -1)
-        getters["future_motion_base_ang_vel"] = froot_ang.reshape(N, -1)
-        getters["future_motion_dof_pos"] = fm["dof_pos"].reshape(N, -1)
-        getters["future_motion_local_ref_key_body_pos"] = f_local_key.reshape(N, -1)
-        getters["next_step_ref_motion"] = torch.cat([
-            fm["root_pos"][:, 0, 2:3], frpy[:, 0, :2], froot_vel[:, 0], froot_ang[:, 0, 2:3],
-            fm["dof_pos"][:, 0], f_local_key[:, 0].reshape(N, -1)], dim=-1)
+        with span("env.future_targets"):
+            t = ((state.episode_length.to(torch.float32)[:, None] * self.dt + state.motion_start_times[:, None])
+                 + self.tar_obs_steps[None] * self.dt)                            # [N,S]
+            ids = state.motion_ids[:, None].expand(t.shape)
+            # on terrain, moved onto the env's tile as every reference fetch is (`:173`)
+            off = state.origin_shift[:, None] if self.terrain is not None else None
+            fm = get_motion_state(self.motion_lib.data, ids, t, offset=off)
+            froot_rot = fm["root_rot"]
+            frpy = rot.get_euler_xyz(froot_rot)
+            froot_vel = rot.quat_rotate_inverse(froot_rot, fm["root_vel"])
+            froot_ang = rot.quat_rotate_inverse(froot_rot, fm["root_ang_vel"])
+            f_anchor_inv = rot.quat_conjugate(fm["rg_rot_t"][..., ai, :])[..., None, :]
+            f_local_key = rot.quat_rotate(f_anchor_inv.expand(fm["rg_pos_t"].shape[:-1] + (4,)),
+                                          fm["rg_pos_t"] - fm["rg_pos_t"][..., ai, :][..., None, :])[..., kid, :]
+            getters["future_motion_root_height"] = fm["root_pos"][..., 2:3].reshape(N, -1)
+            getters["future_motion_roll_pitch"] = frpy[..., :2].reshape(N, -1)
+            getters["future_motion_base_lin_vel"] = froot_vel.reshape(N, -1)
+            getters["future_motion_base_yaw_vel"] = froot_ang[..., 2:3].reshape(N, -1)
+            getters["future_motion_base_ang_vel"] = froot_ang.reshape(N, -1)
+            getters["future_motion_dof_pos"] = fm["dof_pos"].reshape(N, -1)
+            getters["future_motion_local_ref_key_body_pos"] = f_local_key.reshape(N, -1)
+            getters["next_step_ref_motion"] = torch.cat([
+                fm["root_pos"][:, 0, 2:3], frpy[:, 0, :2], froot_vel[:, 0], froot_ang[:, 0, 2:3],
+                fm["dof_pos"][:, 0], f_local_key[:, 0].reshape(N, -1)], dim=-1)
         return getters
 
 

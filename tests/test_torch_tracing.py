@@ -2,7 +2,7 @@
 shared no-op context that records nothing; under a profiler, named ranges on
 its timeline with in-memory records (parent, host times, host syncs) grouped
 by profiler session; and the spans of the env step, the lanes engine and the
-learner.
+learners (MHPPO's and PPOMimic's).
 
 This file imports no JAX. Its `cuda` test runs on the card with
     python -m pytest --noconftest -m cuda tests/test_torch_tracing.py
@@ -140,6 +140,61 @@ def test_learner_spans():
     assert t["learner.gae"]["count"] == 1
     assert t["learner.minibatch"]["count"] == algo.num_epochs * algo.num_minibatches
     assert all(r.parent == 0 for r in rec[1:])
+
+
+@pytest.fixture(scope="module")
+def mimic():
+    """KungfuBot2's 29-DoF teacher at 16 envs and 2 steps an iteration, fresh
+    weights: its first iteration (0) is an rl+dagger one."""
+    from pbhc_tpu_torch.config.loader import Cfg, apply_overrides, load_snapshot
+    from pbhc_tpu_torch.train import build
+
+    cfg = load_snapshot("kb2_teacher29_r5")
+    cfg["num_envs"], cfg["device"] = 16, "cpu"
+    return build(Cfg.wrap(apply_overrides(cfg, ["algo.config.num_steps_per_env=2"])))
+
+
+def test_mimic_learner_spans(mimic):
+    env, algo, ts = mimic
+    for mode in ("rl+dagger", "rl"):
+        assert algo.mode(ts) == mode
+        with cpu_profile():
+            rollout = algo.rollout(ts)
+        rec = profiling.sessions()[-1]
+        t = profiling.totals(rec)
+        assert rec[0].name == "learner.rollout" and rec[0].parent is None
+        assert t["policy"]["count"] == t["env.step"]["count"] == algo.num_steps == 2
+        assert all(r.parent == 0 for r in rec if r.name in ("policy", "env.step"))
+        with cpu_profile():
+            ts, _ = algo.learn(ts, rollout)
+        rec = profiling.sessions()[-1]
+        t = profiling.totals(rec)
+        assert rec[0].name == "learner.update" and t["learner.update"]["count"] == 1
+        assert t["learner.gae"]["count"] == 1
+        assert t["learner.minibatch"]["count"] == algo.num_epochs * algo.num_minibatches
+        assert t.get("learner.dagger", {"count": 0})["count"] == (mode == "rl+dagger")
+        assert all(r.parent == 0 for r in rec[1:])
+
+
+def test_general_env_step_records_the_future_targets_in_its_observations(mimic):
+    env, algo, ts = mimic
+    with torch.no_grad():
+        actions = ts.net.act(ts.obs)[0]
+        with cpu_profile():
+            env.step(ts.env_state, actions)
+    rec = profiling.sessions()[-1]
+    fut = [i for i, r in enumerate(rec) if r.name == "env.future_targets"]
+    assert len(fut) == 1 and rec[rec[fut[0]].parent].name == "env.observations"
+    step = next(i for i, r in enumerate(rec) if r.name == "env.step")
+    assert [r.name for r in children(rec, step)] == STAGES
+
+
+def test_mimic_spans_are_free_without_a_profiler(mimic):
+    env, algo, ts = mimic
+    before = [len(s) for s in profiling.sessions()]
+    assert span("learner.dagger") is span("env.future_targets")
+    algo.learn(ts, algo.rollout(ts))
+    assert [len(s) for s in profiling.sessions()] == before
 
 
 @pytest.fixture
