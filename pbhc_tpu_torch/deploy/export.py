@@ -106,7 +106,7 @@ def student_meta(env, meta_extra=None):
         "history_length": int(env.config.obs.history_length),
         "future_num_steps": int(env.future_num_steps),
         "future_max_steps": int(env.future_max_steps),
-        "key_body_ids": np.asarray(env.key_body_id).tolist(),
+        "key_body_ids": env.key_body_id.tolist(),
         "anchor_index": int(env.anchor_index),
         "action_clip": float(env.action_clip),
         "clip_obs": float(env.clip_obs),

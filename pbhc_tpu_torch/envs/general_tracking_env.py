@@ -29,7 +29,9 @@ class GeneralTrackingEnv(MotionTrackingEnv):
         super().__init__(config, num_envs, device=device, seed=seed, shard=shard)
         rcfg = config.robot
         names_ext = list(self.sim_model.body_names) + [e["joint_name"] for e in rcfg.motion.extend_config]
-        self.key_body_id = np.asarray([names_ext.index(n) for n in rcfg.key_bodies])
+        # a device int64 table: no host array may index a device tensor on the step path
+        self.key_body_id = torch.as_tensor(np.asarray([names_ext.index(n) for n in rcfg.key_bodies], dtype=np.int64),
+                                           device=self.device)
         self.anchor_index = names_ext.index(rcfg.motion.get("anchor_link", "pelvis"))
         self.future_num_steps = int(config.obs.get("future_num_steps", 20))
         self.future_max_steps = int(config.obs.get("future_max_steps", 95))

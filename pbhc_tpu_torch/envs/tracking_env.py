@@ -3,10 +3,13 @@
 
 One batched state (`EnvState`, leading env axis) and step/reset functions with
 masked `torch.where` resets, so a rollout never leaves the device and never
-synchronises with the host. Randomness comes from one `torch.Generator` on the
-env's device, drawn only where the config turns a random feature on. Its draws
-differ from JAX's threefry, so parity tests turn randomness off or inject
-JAX's draws.
+synchronises with the host: every index table and draw bound a step reads is
+a device tensor built in `__init__`. Randomness comes from one
+`torch.Generator` on the env's device, drawn only where the config turns a
+random feature on. Its draws differ from JAX's threefry, so parity tests turn
+randomness off or inject JAX's draws. A step's stages besides the engine are
+methods of their arguments alone, so that on a card each replays a CUDA graph
+(`sim/step_graph.py`).
 
 All three physics branches of the JAX step are here: `solver: lanes` (the
 env-last engine, kernel 1; on a card its control step replays one CUDA graph,
@@ -43,7 +46,7 @@ from pbhc_tpu_torch.motion.motion_lib import MotionLib, get_motion_state, sample
 from pbhc_tpu_torch.parallel.mesh import EnvShard
 from pbhc_tpu_torch.sim.engine import Engine, EngineOptions, SimState, tree_map
 from pbhc_tpu_torch.sim.engine_lanes import LanesEngine
-from pbhc_tpu_torch.sim.step_graph import StepGraphs
+from pbhc_tpu_torch.sim.step_graph import StageGraphs, StepGraphs
 from pbhc_tpu_torch.utils.noise_tool import ou_step
 from pbhc_tpu_torch.utils.profiling import span
 
@@ -185,6 +188,9 @@ class MotionTrackingEnv:
         # the lanes control steps, replayed as CUDA graphs on a card; `counts`
         # holds the graphed and the eager ones
         self.step_graphs = StepGraphs(self.lanes_engine, self.gen) if self.lanes_engine is not None else None
+        # the env's stages of a control step, replayed as CUDA graphs where
+        # `step_graph.env_eligible` allows
+        self.stage_graphs = StageGraphs()
 
         # terrain group (`tracking_env.py:146-176`): a heightfield goes into the
         # engine; per-env origins over the curriculum grid, the column fixed
@@ -206,19 +212,21 @@ class MotionTrackingEnv:
         self.num_extend = len(extend_cfg)
         dev = self.device
         f32 = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
+        i64 = lambda x: torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
 
-        # index bookkeeping (`tracking_env.py:193-214`)
+        # index bookkeeping (`tracking_env.py:193-214`), device int64 tables:
+        # no host array may index a device tensor on the step path
         names = self.sim_model.body_names
         names_ext = list(names) + [e["joint_name"] for e in extend_cfg]
-        self.feet_indices = np.asarray([names.index(n) for n in names if rcfg.foot_name in n])
-        self.penalised_contact_indices = np.asarray(
+        self.feet_indices = i64([names.index(n) for n in names if rcfg.foot_name in n])
+        self.penalised_contact_indices = i64(
             [i for i, n in enumerate(names) if any(p in n for p in rcfg.penalize_contacts_on)])
-        self.termination_contact_indices = np.asarray(
+        self.termination_contact_indices = i64(
             [i for i, n in enumerate(names) if any(p in n for p in rcfg.terminate_after_contacts_on)])
-        self.upper_body_id = np.asarray([names_ext.index(n) for n in rcfg.motion.upper_body_link])
-        self.lower_body_id = np.asarray([names_ext.index(n) for n in rcfg.motion.lower_body_link])
-        self.motion_tracking_id = np.asarray([names_ext.index(n) for n in rcfg.motion.motion_tracking_link])
-        self.extend_parent_ids = np.asarray([names.index(e["parent_name"]) for e in extend_cfg])
+        self.upper_body_id = i64([names_ext.index(n) for n in rcfg.motion.upper_body_link])
+        self.lower_body_id = i64([names_ext.index(n) for n in rcfg.motion.lower_body_link])
+        self.motion_tracking_id = i64([names_ext.index(n) for n in rcfg.motion.motion_tracking_link])
+        self.extend_parent_ids = i64([names.index(e["parent_name"]) for e in extend_cfg])
         self.extend_pos = f32([e["pos"] for e in extend_cfg])
         self.extend_rot_xyzw = f32(np.asarray([e["rot"] for e in extend_cfg])[:, [1, 2, 3, 0]])
 
@@ -264,6 +272,22 @@ class MotionTrackingEnv:
 
         self.dr = config.domain_rand
         self.sim_params, self.dr_obs = self._sample_sim_params()
+        # the bounds of the uniform draws and the joints that a step's
+        # episodic DR and torque injection read, on the device
+        dr = self.dr
+        bounds = {"kp_range": dr.get("kp_range"), "kd_range": dr.get("kd_range"),
+                  "rfi_lim_range": dr.get("rfi_lim_range"), "dof_pos_range": dr.get("dof_pos_range")}
+        if dr.get("push_robots", False):
+            bounds["push_vel"] = (-float(dr.max_push_vel_xy), float(dr.max_push_vel_xy))
+        if dr.get("use_rao", False):
+            bounds["rao"] = (-dr.rao_lim, dr.rao_lim)
+        pspd, pstau = dr.get("parallel_serial_pd", {}), dr.get("parallel_serial_tau", {})
+        if pspd and bool(pspd.get("enable", False)):
+            bounds["pspd_ratio"] = pspd.ratio
+            self.pspd_idx = i64(list(pspd.joint_idx))
+        if pstau and bool(pstau.get("enable", False)):
+            self.pstau_idx = i64(list(pstau.joint_idx))
+        self.draw_bounds = {k: (f32(v[0]), f32(v[1])) for k, v in bounds.items() if v is not None}
         self.paramsT = LanesEngine.params_to_lanes(self.sim_params)
 
         # rewards (`tracking_env.py:272-283`)
@@ -299,6 +323,8 @@ class MotionTrackingEnv:
 
     # ------------------------------------------------------------ random draws
     def _uniform(self, shape, lo, hi):
+        """Uniform in [lo, hi): the bounds float32, as tensors on the device
+        (`draw_bounds`) on the step's path."""
         lo = torch.as_tensor(lo, dtype=torch.float32, device=self.device)
         hi = torch.as_tensor(hi, dtype=torch.float32, device=self.device)
         return lo + (hi - lo) * torch.rand(shape, generator=self.gen, device=self.device)
@@ -362,26 +388,25 @@ class MotionTrackingEnv:
 
     def _episodic_dr(self, N):
         """kp/kd/rfi/rao scales, delay, default pos (`tracking_env.py:404`)."""
-        dr, nd, dev = self.dr, self.nd, self.device
+        dr, nd, dev, b = self.dr, self.nd, self.device, self.draw_bounds
         one = torch.ones((N, nd), device=dev)
         pd = dr.get("randomize_pd_gain", False)
-        kp_scale = self._uniform((N, nd), *dr.kp_range) if pd else one
-        kd_scale = self._uniform((N, nd), *dr.kd_range) if pd else one
-        pspd = dr.get("parallel_serial_pd", {})
-        if pspd and bool(pspd.get("enable", False)):
-            jidx = np.asarray(list(pspd.joint_idx), dtype=np.int64)
+        kp_scale = self._uniform((N, nd), *b["kp_range"]) if pd else one
+        kd_scale = self._uniform((N, nd), *b["kd_range"]) if pd else one
+        if "pspd_ratio" in b:
+            jidx = self.pspd_idx
             kp_scale = kp_scale.clone()
             kd_scale = kd_scale.clone()
-            kp_scale[:, jidx] *= self._uniform((N, len(jidx)), *pspd.ratio)
-            kd_scale[:, jidx] *= self._uniform((N, len(jidx)), *pspd.ratio)
-        rfi = self._uniform((N, nd), *dr.rfi_lim_range) if dr.get("randomize_rfi_lim", False) else one
-        rao = self._uniform((N, nd), -dr.rao_lim, dr.rao_lim) if dr.get("use_rao", False) \
+            kp_scale[:, jidx] *= self._uniform((N, len(jidx)), *b["pspd_ratio"])
+            kd_scale[:, jidx] *= self._uniform((N, len(jidx)), *b["pspd_ratio"])
+        rfi = self._uniform((N, nd), *b["rfi_lim_range"]) if dr.get("randomize_rfi_lim", False) else one
+        rao = self._uniform((N, nd), *b["rao"]) if dr.get("use_rao", False) \
             else torch.zeros((N, nd), device=dev)
-        pstau = dr.get("parallel_serial_tau", {})
-        if pstau and bool(pstau.get("enable", False)):
-            tidx = np.asarray(list(pstau.joint_idx), dtype=np.int64)
+        if self.use_pstau:
+            tidx = self.pstau_idx
             rao = rao.clone()
-            rao[:, tidx] += float(pstau.rao_lim) * torch.randn((N, len(tidx)), generator=self.gen, device=dev)
+            rao[:, tidx] += float(dr.parallel_serial_tau.rao_lim) * torch.randn((N, len(tidx)), generator=self.gen,
+                                                                                 device=dev)
         if dr.get("randomize_ctrl_delay", False):
             lo, hi = dr.ctrl_delay_step_range
             delay = self._randint((N,), lo, hi + 1)
@@ -389,7 +414,7 @@ class MotionTrackingEnv:
             delay = torch.zeros((N,), dtype=torch.int64, device=dev)
         default_dof = self.raw_default_dof_pos.expand(N, nd)
         if dr.get("randomize_default_dof_pos", False):
-            default_dof = default_dof + self._uniform((N, nd), *dr.dof_pos_range)
+            default_dof = default_dof + self._uniform((N, nd), *b["dof_pos_range"])
         return kp_scale, kd_scale, rfi, rao, delay, default_dof
 
     def _extend_body_states(self, sim: SimState):
@@ -610,10 +635,8 @@ class MotionTrackingEnv:
         if dr.get("use_rao", False):
             inputs["rao_tau"] = state.rao_scale * self.torque_limits
         if self.use_pstau and self.physics == "per_env":
-            pstau = dr.parallel_serial_tau
-            pst_idx = torch.as_tensor(np.asarray(list(pstau.joint_idx), dtype=np.int64), device=self.device)
-            inputs["pst_idx"] = pst_idx
-            inputs["pst_scale"] = float(pstau.rfi_lim) * self.torque_limits[pst_idx]
+            inputs["pst_idx"] = self.pstau_idx
+            inputs["pst_scale"] = float(dr.parallel_serial_tau.rfi_lim) * self.torque_limits[self.pstau_idx]
         return inputs
 
     def _torques(self, inputs: dict, st: SimState):
@@ -688,42 +711,17 @@ class MotionTrackingEnv:
         return _env_fields(put, state.episode_length.shape[0], state, snapshot)
 
     def step(self, state: EnvState, actions):
-        """One control step -> (state, obs_dict, rew [N,R], done, info) (`tracking_env.py:720`)."""
-        N, dev, dr = self.num_envs, self.device, self.dr
-        ecfg = self.ecfg
+        """One control step -> (state, obs_dict, rew [N,R], done, info) (`tracking_env.py:720`).
+
+        Its stages besides the engine are methods of their arguments alone
+        (`_actions_stage`, `_rewards_stage`, `_resets_stage`,
+        `_observations_stage`): on a card each replays a CUDA graph where
+        `step_graph.env_eligible` allows (`sim/step_graph.py`)."""
+        run = functools.partial(self.stage_graphs.run, self)
         with span("env.step"):
             with span("env.actions"):
-                if self.only_track_leg:
-                    mres_leg, _ = self._motion_state_at(state, 1)
-                    na = self.num_actions
-                    rest = (mres_leg["dof_pos"][:, na:] - state.default_dof_pos[:, na:]) / self.action_scales[na:]
-                    actions = torch.cat([actions, rest], dim=-1)
-                actions = torch.clamp(actions, -self.action_clip, self.action_clip)
-                if dr.get("randomize_ctrl_delay", False):
-                    queue = torch.cat([actions[:, None], state.action_queue[:, :-1]], dim=1)
-                    after_delay = queue[torch.arange(N, device=dev), state.action_delay_idx]
-                else:
-                    queue, after_delay = state.action_queue, actions
-
-                sim = state.sim
-                push_counter = state.push_counter + 1
-                push_interval = state.push_interval
-                if dr.get("push_robots", False):
-                    do_push = push_counter >= push_interval
-                    max_vel = float(dr.max_push_vel_xy)
-                    push_vel = self._uniform((N, 2), -max_vel, max_vel)
-                    vel_xy = sim.root_lin_vel[:, :2]
-                    new_xy = vel_xy + push_vel if dr.get("_push_fixed", False) else push_vel
-                    sim = dataclasses.replace(sim, root_lin_vel=torch.where(
-                        do_push[:, None], torch.cat([new_xy, sim.root_lin_vel[:, 2:]], -1), sim.root_lin_vel))
-                    push_counter = torch.where(do_push, 0, push_counter)
-                    push_interval = torch.where(do_push, self._sample_push_interval(N), push_interval)
-
-                kp_eff = state.kp_scale * self.p_gains
-                kd_eff = state.kd_scale * self.d_gains
-                target = after_delay * self.action_scales + state.default_dof_pos
-                torque_in = self._torque_inputs(state, target, kp_eff, kd_eff)
-                torque_fn = functools.partial(self._torques, torque_in)
+                sim, actions, queue, after_delay, push_counter, push_interval, torque_in = run(
+                    "actions", self._actions_stage, state, actions)
                 pre = self._sdc_pre_fn(state, sim) if self.use_sdc else None
             with span("env.engine"):
                 # `solver: lanes` runs the env-last engine (kernel 1), on a card
@@ -736,135 +734,198 @@ class MotionTrackingEnv:
                         pre_substep_fn=pre)
                 elif self.physics == "batched":
                     sim, torques = self.engine.control_step_batched(
-                        self.sim_params, sim, torque_fn, self.decimation, paramsT=self.paramsT)
+                        self.sim_params, sim, functools.partial(self._torques, torque_in), self.decimation,
+                        paramsT=self.paramsT)
                 else:
                     sim, torques = self.engine.control_step(
-                        self.sim_params, sim, torque_fn, self.decimation, pre_substep_fn=pre, paramsT=self.paramsT)
+                        self.sim_params, sim, functools.partial(self._torques, torque_in), self.decimation,
+                        pre_substep_fn=pre, paramsT=self.paramsT)
             with span("env.rewards"):
-                episode_length = state.episode_length + 1
-
-                base_quat = sim.root_quat
-                gravity = self._gravity_vec.expand(N, 3)
-                projected_gravity = rot.quat_rotate_inverse(base_quat, gravity)
-                base_lin_vel = rot.quat_rotate_inverse(base_quat, sim.root_lin_vel)
-                feet_cf = sim.contact_forces[:, self.feet_indices]
-                contacts = (torch.linalg.vector_norm(feet_cf, dim=-1) > 1.0).to(torch.float32)
-                contacts_filt = ((contacts > 0) | (state.last_contacts > 0)).to(torch.float32)
-
-                st_tmp = dataclasses.replace(state, episode_length=episode_length, sim=sim)
-                mres, _ = self._motion_state_at(st_tmp, 1)
-                body_pos, body_quat, body_vel, body_ang_vel = self._extend_body_states(sim)
-                diffs = self._compute_diffs(sim, mres, body_pos, body_quat, body_vel, body_ang_vel)
-
-                # termination (`tracking_env.py:924-986`)
-                term = {}
-                tcfg, tscl = ecfg.termination, ecfg.termination_scales
-                norm = torch.linalg.vector_norm
-                if tcfg.terminate_by_contact:
-                    term["contact"] = torch.any(
-                        norm(sim.contact_forces[:, self.termination_contact_indices], dim=-1) > 1.0, dim=1)
-                if tcfg.terminate_by_gravity:
-                    term["gravity"] = norm(projected_gravity[:, :2], dim=-1) > float(tscl.termination_gravity)
-                if tcfg.terminate_by_low_height:
-                    term["low_height"] = sim.root_pos[:, 2] < float(tscl.termination_min_base_height)
-                if tcfg.terminate_when_motion_far:
-                    term["motion_far"] = torch.any(norm(diffs["dif_body_pos"], dim=-1) > state.motion_far_threshold,
-                                                   dim=-1)
-                if tcfg.terminate_when_dof_far:
-                    term["dof_far"] = norm(diffs["dif_joint_pos"], dim=-1) > state.dof_far_threshold
-                # probabilistic close-to-limit terminations: one Bernoulli gate per
-                # step shared across envs (`tracking_env.py:943-961`)
-                tprob = ecfg.termination_probality
-                if tcfg.get("terminate_when_close_to_dof_pos_limit", False):
-                    lim = self.dof_pos_limits
-                    m, r = (lim[:, 0] + lim[:, 1]) / 2, lim[:, 1] - lim[:, 0]
-                    sc = float(tscl.termination_close_to_dof_pos_limit)
-                    out = (-torch.clamp(sim.dof_pos - (m - 0.5 * r * sc), max=0.0)
-                           + torch.clamp(sim.dof_pos - (m + 0.5 * r * sc), min=0.0)).sum(-1)
-                    term["dof_pos_limit"] = (out > 0) & self._gate(tprob.terminate_when_close_to_dof_pos_limit)
-                if tcfg.get("terminate_when_close_to_dof_vel_limit", False):
-                    out = torch.clamp(torch.abs(sim.dof_vel) - self.dof_vel_limits
-                                      * float(tscl.termination_close_to_dof_vel_limit), 0.0, 1.0).sum(-1)
-                    term["dof_vel_limit"] = (out > 0) & self._gate(tprob.terminate_when_close_to_dof_vel_limit)
-                if tcfg.get("terminate_when_close_to_torque_limit", False):
-                    out = torch.clamp(torch.abs(torques) - self.torque_limits
-                                      * float(tscl.termination_close_to_torque_limit), 0.0, 1.0).sum(-1)
-                    term["torque_limit"] = (out > 0) & self._gate(tprob.terminate_when_close_to_torque_limit)
-                term = self._extra_terminations(term, diffs, state)
-                term["nonfinite"] = ~(torch.isfinite(sim.dof_pos).all(-1) & torch.isfinite(sim.dof_vel).all(-1)
-                                      & torch.isfinite(sim.root_pos).all(-1) & torch.isfinite(sim.root_quat).all(-1))
-                reset_buf = torch.zeros((N,), dtype=torch.bool, device=dev)
-                for v in term.values():
-                    reset_buf = reset_buf | v
-                time_out = episode_length > self.max_episode_length
-                if tcfg.terminate_when_motion_end:
-                    current_time = episode_length.to(torch.float32) * self.dt + state.motion_start_times
-                    term["motion_end"] = current_time > state.motion_len
-                    time_out = time_out | term["motion_end"]
-                term["time_out"] = time_out
-                reset_buf = reset_buf | time_out
-
-                rew_state = dict(
-                    sim=sim, torques=torques, actions=actions, last_actions=state.last_actions,
-                    last_dof_vel=state.last_dof_vel, projected_gravity=projected_gravity,
-                    contacts=contacts, contacts_filt=contacts_filt, last_contacts=state.last_contacts,
-                    last_contacts_filt=state.last_contacts_filt, feet_air_time=state.feet_air_time,
-                    body_vel=body_vel, ref_contact_mask=mres["contact_mask"], reset_buf=reset_buf,
-                    time_out=time_out, base_lin_vel=base_lin_vel, mres=mres, diffs=diffs,
-                    body_pos=body_pos, body_quat=body_quat, body_ang_vel=body_ang_vel, **diffs)
-                rew_vec, feet_air_time, errors = self._compute_rewards(state, rew_state)
-
-                # the replicated scalars' reductions over the env axis, global over
-                # every rank's envs by one packed all-reduce (`parallel/mesh.py`)
-                asc = ecfg.get("adaptive_motion_sampling")
-                adaptive = self.motion_lib.num_unique > 1 and asc and bool(asc.get("enabled", False))
-                sigma_errs = [errors[t].mean() / self.shard.world for t in self.sigma_terms
-                              if self.adaptive_sigma and t in errors]
-                sums = [reset_buf.sum(), (episode_length * reset_buf).sum(), *sigma_errs]
-                if adaptive:
-                    M = self.motion_lib.num_unique
-                    sums.append(torch.zeros(M, device=dev).index_add_(0, state.motion_ids, reset_buf.float()))
-                    sums.append(torch.zeros(M, device=dev).index_add_(0, state.motion_ids,
-                                                                      (reset_buf & ~time_out).float()))
-                sums = self.shard.all_sum(sums)
-                n_reset, epl_sum = sums[:2]
-                sigma_values, sigma_ema = self._update_sigmas(state, dict(zip(
-                    [t for t in self.sigma_terms if self.adaptive_sigma and t in errors], sums[2:2 + len(sigma_errs)])))
-                avg_epl = self._update_avg_episode_length(state, epl_sum, n_reset)
-                motion_fail_ema = state.motion_fail_ema
-                if adaptive:
-                    g = float(asc.get("gamma", 0.1))
-                    resets, fails = sums[-2:]
-                    rate = fails / torch.clamp(resets, min=1.0)
-                    motion_fail_ema = torch.where(resets > 0, (1.0 - g) * motion_fail_ema + g * rate, motion_fail_ema)
-                state2 = dataclasses.replace(
-                    state, sim=sim, episode_length=episode_length, feet_air_time=feet_air_time,
-                    average_episode_length=avg_epl, motion_fail_ema=motion_fail_ema,
-                    sigma_values=sigma_values, sigma_ema=sigma_ema, push_counter=push_counter,
-                    push_interval=push_interval, action_queue=queue, actions=actions,
-                    actions_after_delay=after_delay, torques=torques, last_episode_length=episode_length)
-                state2 = self._update_curricula(state2, n_reset)
+                state2, reset_buf, time_out, term, rew_vec, errors, contacts, contacts_filt = run(
+                    "rewards", self._rewards_stage, state, sim, torques, actions, queue, after_delay,
+                    push_counter, push_interval)
             with span("env.resets"):
-                state2 = self._reset_envs(state2, reset_buf)
-                if self.noise_process is not None:
-                    # the OU process behind the noised IMU observations (`tracking_env.py:1036-1045`)
-                    kw = dict(self.noise_process.get("kwargs", {}))
-                    noise_ou, _ = ou_step(state2.noise_ou, self.gen, self.dt, theta=float(kw.get("theta", 1.0)),
-                                          sigma=float(kw.get("sigma", 1.0)))
-                    state2 = dataclasses.replace(state2, noise_ou=torch.where(reset_buf[:, None], 0.0, noise_ou))
+                state2 = run("resets", self._resets_stage, state2, reset_buf)
             with span("env.observations"):
-                obs_dict, hist = self.compute_observations(state2)
-                m1 = reset_buf[:, None]
-                state3 = dataclasses.replace(
-                    state2, history=hist, last_actions=state2.actions, last_dof_vel=state2.sim.dof_vel,
-                    last_contacts=torch.where(m1, 0.0, contacts),
-                    last_contacts_filt=torch.where(m1, 0.0, contacts_filt),
-                    contacts=torch.where(m1, 0.0, contacts), contacts_filt=torch.where(m1, 0.0, contacts_filt))
-                info = {"time_outs": time_out, "nonfinite": term["nonfinite"],
-                        "log": self._build_log(term, reset_buf, rew_vec, errors, state3)}
-                if not self.use_vec_reward:
-                    rew_vec = rew_vec.sum(-1, keepdim=True)
-            return state3, obs_dict, rew_vec, reset_buf, info
+                return run("observations", self._observations_stage, state2, reset_buf, time_out, term, rew_vec,
+                           errors, contacts, contacts_filt)
+
+    def _actions_stage(self, state: EnvState, actions):
+        """Clip, the delay queue, the push and the PD targets of a control
+        step -> (sim, actions, queue, after_delay, push_counter,
+        push_interval, torque inputs)."""
+        N, dev, dr = self.num_envs, self.device, self.dr
+        if self.only_track_leg:
+            mres_leg, _ = self._motion_state_at(state, 1)
+            na = self.num_actions
+            rest = (mres_leg["dof_pos"][:, na:] - state.default_dof_pos[:, na:]) / self.action_scales[na:]
+            actions = torch.cat([actions, rest], dim=-1)
+        actions = torch.clamp(actions, -self.action_clip, self.action_clip)
+        if dr.get("randomize_ctrl_delay", False):
+            queue = torch.cat([actions[:, None], state.action_queue[:, :-1]], dim=1)
+            after_delay = queue[torch.arange(N, device=dev), state.action_delay_idx]
+        else:
+            queue, after_delay = state.action_queue, actions
+
+        sim = state.sim
+        push_counter = state.push_counter + 1
+        push_interval = state.push_interval
+        if dr.get("push_robots", False):
+            do_push = push_counter >= push_interval
+            push_vel = self._uniform((N, 2), *self.draw_bounds["push_vel"])
+            vel_xy = sim.root_lin_vel[:, :2]
+            new_xy = vel_xy + push_vel if dr.get("_push_fixed", False) else push_vel
+            sim = dataclasses.replace(sim, root_lin_vel=torch.where(
+                do_push[:, None], torch.cat([new_xy, sim.root_lin_vel[:, 2:]], -1), sim.root_lin_vel))
+            push_counter = torch.where(do_push, 0, push_counter)
+            push_interval = torch.where(do_push, self._sample_push_interval(N), push_interval)
+
+        kp_eff = state.kp_scale * self.p_gains
+        kd_eff = state.kd_scale * self.d_gains
+        target = after_delay * self.action_scales + state.default_dof_pos
+        torque_in = self._torque_inputs(state, target, kp_eff, kd_eff)
+        return sim, actions, queue, after_delay, push_counter, push_interval, torque_in
+
+    def _rewards_stage(self, state: EnvState, sim: SimState, torques, actions, queue, after_delay, push_counter,
+                       push_interval):
+        """The reference fetch, diffs, terminations, rewards, their
+        reductions and the curricula of a control step, on the engine's
+        `sim` and `torques` and the actions stage's outputs -> (state2,
+        reset_buf, time_out, term, rew_vec, errors, contacts, contacts_filt)."""
+        N, dev, ecfg = self.num_envs, self.device, self.ecfg
+        episode_length = state.episode_length + 1
+
+        base_quat = sim.root_quat
+        gravity = self._gravity_vec.expand(N, 3)
+        projected_gravity = rot.quat_rotate_inverse(base_quat, gravity)
+        base_lin_vel = rot.quat_rotate_inverse(base_quat, sim.root_lin_vel)
+        feet_cf = sim.contact_forces[:, self.feet_indices]
+        contacts = (torch.linalg.vector_norm(feet_cf, dim=-1) > 1.0).to(torch.float32)
+        contacts_filt = ((contacts > 0) | (state.last_contacts > 0)).to(torch.float32)
+
+        st_tmp = dataclasses.replace(state, episode_length=episode_length, sim=sim)
+        mres, _ = self._motion_state_at(st_tmp, 1)
+        body_pos, body_quat, body_vel, body_ang_vel = self._extend_body_states(sim)
+        diffs = self._compute_diffs(sim, mres, body_pos, body_quat, body_vel, body_ang_vel)
+
+        # termination (`tracking_env.py:924-986`)
+        term = {}
+        tcfg, tscl = ecfg.termination, ecfg.termination_scales
+        norm = torch.linalg.vector_norm
+        if tcfg.terminate_by_contact:
+            term["contact"] = torch.any(
+                norm(sim.contact_forces[:, self.termination_contact_indices], dim=-1) > 1.0, dim=1)
+        if tcfg.terminate_by_gravity:
+            term["gravity"] = norm(projected_gravity[:, :2], dim=-1) > float(tscl.termination_gravity)
+        if tcfg.terminate_by_low_height:
+            term["low_height"] = sim.root_pos[:, 2] < float(tscl.termination_min_base_height)
+        if tcfg.terminate_when_motion_far:
+            term["motion_far"] = torch.any(norm(diffs["dif_body_pos"], dim=-1) > state.motion_far_threshold,
+                                           dim=-1)
+        if tcfg.terminate_when_dof_far:
+            term["dof_far"] = norm(diffs["dif_joint_pos"], dim=-1) > state.dof_far_threshold
+        # probabilistic close-to-limit terminations: one Bernoulli gate per
+        # step shared across envs (`tracking_env.py:943-961`)
+        tprob = ecfg.termination_probality
+        if tcfg.get("terminate_when_close_to_dof_pos_limit", False):
+            lim = self.dof_pos_limits
+            m, r = (lim[:, 0] + lim[:, 1]) / 2, lim[:, 1] - lim[:, 0]
+            sc = float(tscl.termination_close_to_dof_pos_limit)
+            out = (-torch.clamp(sim.dof_pos - (m - 0.5 * r * sc), max=0.0)
+                   + torch.clamp(sim.dof_pos - (m + 0.5 * r * sc), min=0.0)).sum(-1)
+            term["dof_pos_limit"] = (out > 0) & self._gate(tprob.terminate_when_close_to_dof_pos_limit)
+        if tcfg.get("terminate_when_close_to_dof_vel_limit", False):
+            out = torch.clamp(torch.abs(sim.dof_vel) - self.dof_vel_limits
+                              * float(tscl.termination_close_to_dof_vel_limit), 0.0, 1.0).sum(-1)
+            term["dof_vel_limit"] = (out > 0) & self._gate(tprob.terminate_when_close_to_dof_vel_limit)
+        if tcfg.get("terminate_when_close_to_torque_limit", False):
+            out = torch.clamp(torch.abs(torques) - self.torque_limits
+                              * float(tscl.termination_close_to_torque_limit), 0.0, 1.0).sum(-1)
+            term["torque_limit"] = (out > 0) & self._gate(tprob.terminate_when_close_to_torque_limit)
+        term = self._extra_terminations(term, diffs, state)
+        term["nonfinite"] = ~(torch.isfinite(sim.dof_pos).all(-1) & torch.isfinite(sim.dof_vel).all(-1)
+                              & torch.isfinite(sim.root_pos).all(-1) & torch.isfinite(sim.root_quat).all(-1))
+        reset_buf = torch.zeros((N,), dtype=torch.bool, device=dev)
+        for v in term.values():
+            reset_buf = reset_buf | v
+        time_out = episode_length > self.max_episode_length
+        if tcfg.terminate_when_motion_end:
+            current_time = episode_length.to(torch.float32) * self.dt + state.motion_start_times
+            term["motion_end"] = current_time > state.motion_len
+            time_out = time_out | term["motion_end"]
+        term["time_out"] = time_out
+        reset_buf = reset_buf | time_out
+
+        rew_state = dict(
+            sim=sim, torques=torques, actions=actions, last_actions=state.last_actions,
+            last_dof_vel=state.last_dof_vel, projected_gravity=projected_gravity,
+            contacts=contacts, contacts_filt=contacts_filt, last_contacts=state.last_contacts,
+            last_contacts_filt=state.last_contacts_filt, feet_air_time=state.feet_air_time,
+            body_vel=body_vel, ref_contact_mask=mres["contact_mask"], reset_buf=reset_buf,
+            time_out=time_out, base_lin_vel=base_lin_vel, mres=mres, diffs=diffs,
+            body_pos=body_pos, body_quat=body_quat, body_ang_vel=body_ang_vel, **diffs)
+        rew_vec, feet_air_time, errors = self._compute_rewards(state, rew_state)
+
+        # the replicated scalars' reductions over the env axis, global over
+        # every rank's envs by one packed all-reduce (`parallel/mesh.py`)
+        asc = ecfg.get("adaptive_motion_sampling")
+        adaptive = self.motion_lib.num_unique > 1 and asc and bool(asc.get("enabled", False))
+        sigma_errs = [errors[t].mean() / self.shard.world for t in self.sigma_terms
+                      if self.adaptive_sigma and t in errors]
+        sums = [reset_buf.sum(), (episode_length * reset_buf).sum(), *sigma_errs]
+        if adaptive:
+            M = self.motion_lib.num_unique
+            sums.append(torch.zeros(M, device=dev).index_add_(0, state.motion_ids, reset_buf.float()))
+            sums.append(torch.zeros(M, device=dev).index_add_(0, state.motion_ids,
+                                                              (reset_buf & ~time_out).float()))
+        sums = self.shard.all_sum(sums)
+        n_reset, epl_sum = sums[:2]
+        sigma_values, sigma_ema = self._update_sigmas(state, dict(zip(
+            [t for t in self.sigma_terms if self.adaptive_sigma and t in errors], sums[2:2 + len(sigma_errs)])))
+        avg_epl = self._update_avg_episode_length(state, epl_sum, n_reset)
+        motion_fail_ema = state.motion_fail_ema
+        if adaptive:
+            g = float(asc.get("gamma", 0.1))
+            resets, fails = sums[-2:]
+            rate = fails / torch.clamp(resets, min=1.0)
+            motion_fail_ema = torch.where(resets > 0, (1.0 - g) * motion_fail_ema + g * rate, motion_fail_ema)
+        state2 = dataclasses.replace(
+            state, sim=sim, episode_length=episode_length, feet_air_time=feet_air_time,
+            average_episode_length=avg_epl, motion_fail_ema=motion_fail_ema,
+            sigma_values=sigma_values, sigma_ema=sigma_ema, push_counter=push_counter,
+            push_interval=push_interval, action_queue=queue, actions=actions,
+            actions_after_delay=after_delay, torques=torques, last_episode_length=episode_length)
+        state2 = self._update_curricula(state2, n_reset)
+        return state2, reset_buf, time_out, term, rew_vec, errors, contacts, contacts_filt
+
+    def _resets_stage(self, state2: EnvState, reset_buf):
+        """The masked reset of the envs `reset_buf` holds and the OU noise
+        process of a control step -> state2."""
+        state2 = self._reset_envs(state2, reset_buf)
+        if self.noise_process is not None:
+            # the OU process behind the noised IMU observations (`tracking_env.py:1036-1045`)
+            kw = dict(self.noise_process.get("kwargs", {}))
+            noise_ou, _ = ou_step(state2.noise_ou, self.gen, self.dt, theta=float(kw.get("theta", 1.0)),
+                                  sigma=float(kw.get("sigma", 1.0)))
+            state2 = dataclasses.replace(state2, noise_ou=torch.where(reset_buf[:, None], 0.0, noise_ou))
+        return state2
+
+    def _observations_stage(self, state2: EnvState, reset_buf, time_out, term, rew_vec, errors, contacts,
+                            contacts_filt):
+        """Observations, history, the carried contacts and the log of a
+        control step -> (state3, obs_dict, rew [N,R], done, info)."""
+        obs_dict, hist = self.compute_observations(state2)
+        m1 = reset_buf[:, None]
+        state3 = dataclasses.replace(
+            state2, history=hist, last_actions=state2.actions, last_dof_vel=state2.sim.dof_vel,
+            last_contacts=torch.where(m1, 0.0, contacts),
+            last_contacts_filt=torch.where(m1, 0.0, contacts_filt),
+            contacts=torch.where(m1, 0.0, contacts), contacts_filt=torch.where(m1, 0.0, contacts_filt))
+        info = {"time_outs": time_out, "nonfinite": term["nonfinite"],
+                "log": self._build_log(term, reset_buf, rew_vec, errors, state3)}
+        if not self.use_vec_reward:
+            rew_vec = rew_vec.sum(-1, keepdim=True)
+        return state3, obs_dict, rew_vec, reset_buf, info
 
     # ---------------------------------------------------------------- rewards
     def _compute_rewards(self, state: EnvState, rs):
