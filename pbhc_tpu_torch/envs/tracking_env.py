@@ -7,13 +7,13 @@ synchronises with the host: every index table and draw bound a step reads is
 a device tensor built in `__init__`. Randomness comes from one
 `torch.Generator` on the env's device, drawn only where the config turns a
 random feature on. Its draws differ from JAX's threefry, so parity tests turn
-randomness off or inject JAX's draws. A step's stages besides the engine are
-methods of their arguments alone, so that on a card each replays a CUDA graph
-(`sim/step_graph.py`).
+randomness off or inject JAX's draws. A step's five stages (actions, the
+engine, rewards, resets, observations) are methods of their arguments alone,
+so that on a card each replays a CUDA graph (`sim/step_graph.py`).
 
 All three physics branches of the JAX step are here: `solver: lanes` (the
-env-last engine, kernel 1; on a card its control step replays one CUDA graph,
-`sim/step_graph.py`), `solver: pallas` with N % 128 == 0 (the env-first
+env-last engine, kernel 1; on a card its control step is the stage that
+replays the largest graph), `solver: pallas` with N % 128 == 0 (the env-first
 batched step, kernel 2), and the per-env engine for `apgd`, `pgs` and
 `pallas` at other N (`Engine.control_step`, plain PyTorch as in JAX), on a
 flat plane or on the heightfield terrain of a `terrain:` group with
@@ -46,7 +46,7 @@ from pbhc_tpu_torch.motion.motion_lib import MotionLib, get_motion_state, sample
 from pbhc_tpu_torch.parallel.mesh import EnvShard
 from pbhc_tpu_torch.sim.engine import Engine, EngineOptions, SimState, tree_map
 from pbhc_tpu_torch.sim.engine_lanes import LanesEngine
-from pbhc_tpu_torch.sim.step_graph import StageGraphs, StepGraphs
+from pbhc_tpu_torch.sim.step_graph import StageGraphs
 from pbhc_tpu_torch.utils.noise_tool import ou_step
 from pbhc_tpu_torch.utils.profiling import span
 
@@ -185,11 +185,9 @@ class MotionTrackingEnv:
                           lanes_contact_kernel=str(sim_cfg.get("lanes_contact_kernel", "auto"))),
             device=self.device)
         self.lanes_engine = self.engine.lanes() if self.solver == "lanes" else None
-        # the lanes control steps, replayed as CUDA graphs on a card; `counts`
-        # holds the graphed and the eager ones
-        self.step_graphs = StepGraphs(self.lanes_engine, self.gen) if self.lanes_engine is not None else None
-        # the env's stages of a control step, replayed as CUDA graphs where
-        # `step_graph.env_eligible` allows
+        # the stages of a control step, replayed as CUDA graphs where the rules
+        # of `sim/step_graph.py` allow; `counts` holds the graphed and the eager
+        # calls of each
         self.stage_graphs = StageGraphs()
 
         # terrain group (`tracking_env.py:146-176`): a heightfield goes into the
@@ -656,11 +654,6 @@ class MotionTrackingEnv:
             tau = tau + inputs["rao_tau"]
         return torch.clamp(tau, -self.torque_limits, self.torque_limits)
 
-    def _torque_fn(self, state: EnvState, target, kp_eff, kd_eff):
-        """The torque function of one control step, torque_fn(st) -> [N,nd]:
-        `_torques` on the step's inputs."""
-        return functools.partial(self._torques, self._torque_inputs(state, target, kp_eff, kd_eff))
-
     def _gate(self, prob) -> torch.Tensor:
         """One Bernoulli draw with probability `prob`, shared by every env."""
         return torch.rand((), generator=self.shared_gen, device=self.device) < float(prob)
@@ -713,10 +706,11 @@ class MotionTrackingEnv:
     def step(self, state: EnvState, actions):
         """One control step -> (state, obs_dict, rew [N,R], done, info) (`tracking_env.py:720`).
 
-        Its stages besides the engine are methods of their arguments alone
-        (`_actions_stage`, `_rewards_stage`, `_resets_stage`,
-        `_observations_stage`): on a card each replays a CUDA graph where
-        `step_graph.env_eligible` allows (`sim/step_graph.py`)."""
+        Its five stages are methods of their arguments alone
+        (`_actions_stage`, `_engine_stage`, `_rewards_stage`,
+        `_resets_stage`, `_observations_stage`), each run through
+        `stage_graphs`: on a card each replays a CUDA graph where the rules
+        of `sim/step_graph.py` allow."""
         run = functools.partial(self.stage_graphs.run, self)
         with span("env.step"):
             with span("env.actions"):
@@ -724,22 +718,7 @@ class MotionTrackingEnv:
                     "actions", self._actions_stage, state, actions)
                 pre = self._sdc_pre_fn(state, sim) if self.use_sdc else None
             with span("env.engine"):
-                # `solver: lanes` runs the env-last engine (kernel 1), on a card
-                # replayed as one CUDA graph where `step_graph.eligible` allows,
-                # `solver: pallas` at N % 128 == 0 the env-first batched step
-                # (kernel 2), anything else the per-env engine (`tracking_env.py:791-896`)
-                if self.physics == "lanes":
-                    sim, torques = self.step_graphs.step(
-                        self.sim_params, self.paramsT, sim, self._torques, torque_in, self.decimation,
-                        pre_substep_fn=pre)
-                elif self.physics == "batched":
-                    sim, torques = self.engine.control_step_batched(
-                        self.sim_params, sim, functools.partial(self._torques, torque_in), self.decimation,
-                        paramsT=self.paramsT)
-                else:
-                    sim, torques = self.engine.control_step(
-                        self.sim_params, sim, functools.partial(self._torques, torque_in), self.decimation,
-                        pre_substep_fn=pre, paramsT=self.paramsT)
+                sim, torques = run("engine", self._engine_stage, sim, torque_in, pre)
             with span("env.rewards"):
                 state2, reset_buf, time_out, term, rew_vec, errors, contacts, contacts_filt = run(
                     "rewards", self._rewards_stage, state, sim, torques, actions, queue, after_delay,
@@ -749,6 +728,22 @@ class MotionTrackingEnv:
             with span("env.observations"):
                 return run("observations", self._observations_stage, state2, reset_buf, time_out, term, rew_vec,
                            errors, contacts, contacts_filt)
+
+    def _engine_stage(self, sim: SimState, torque_in: dict, pre):
+        """The physics of a control step on the actions stage's `sim` and
+        torque inputs, with the soft-dynamic-correction hook `pre` (or None)
+        -> (sim, torques): `solver: lanes` runs the env-last engine (kernel
+        1), `solver: pallas` at N % 128 == 0 the env-first batched step
+        (kernel 2), anything else the per-env engine (`tracking_env.py:791-896`)."""
+        torque_fn = functools.partial(self._torques, torque_in)
+        if self.physics == "lanes":
+            return self.lanes_engine.control_step_batched(self.sim_params, sim, torque_fn, self.decimation,
+                                                          paramsT=self.paramsT, pre_substep_fn=pre)
+        if self.physics == "batched":
+            return self.engine.control_step_batched(self.sim_params, sim, torque_fn, self.decimation,
+                                                    paramsT=self.paramsT)
+        return self.engine.control_step(self.sim_params, sim, torque_fn, self.decimation, pre_substep_fn=pre,
+                                        paramsT=self.paramsT)
 
     def _actions_stage(self, state: EnvState, actions):
         """Clip, the delay queue, the push and the PD targets of a control

@@ -12,15 +12,15 @@ spans, `env.engine`, `engine.contact`, ...: device ms, kernels launched and
 host syncs per step).
 
 The stage split needs eager steps: a lanes control step that replays its
-CUDA graphs (`sim/step_graph.py`) runs no op of the engine or of the env's
-stages from Python. So the lanes engine's `control_step_batched` is shadowed
-on the instance for the traced steps, which keeps the engine and every stage
-eager by the graphs' own rules (`step_graph.eligible`, `env_eligible`), and
-the same number of steps as the env runs them, graphed, is traced besides:
-`graphed` holds their summary (the engine's device time and kernels under
-`engine.graph_replay`, each stage's under `env.graph_replay`, in its
-`by_span`); `lanes_steps` and `stage_steps` count the graphed and the eager
-calls of the engine and of each stage.
+CUDA graphs (`sim/step_graph.py`) runs no op of its stages from Python. So
+the lanes engine's `control_step_batched` is shadowed on the instance for
+the traced steps, which keeps all five stages eager by the graphs' own rules
+(`step_graph.engine_eligible`, `env_eligible`), and the same number of steps
+as the env runs them, graphed, is traced besides: `graphed` holds their
+summary (the engine's device time and kernels under `engine.graph_replay`,
+each other stage's under `env.graph_replay`, in its `by_span`);
+`stage_steps` counts the graphed and the eager calls of each stage, the
+engine's among them.
 
     python -m pbhc_tpu_torch.eval.profile_rollout [num_envs=4096] [steps=5] [warmup=3] [checkpoint=<pkl>] \
         [a.b.c=value ...]
@@ -86,7 +86,6 @@ def profile_rollout(num_envs=4096, steps=5, warmup=3, checkpoint=CKPT, overrides
     finally:
         del lanes.control_step_batched
     return {**out, **eager, "device": torch.cuda.get_device_name(dev), "graphed": graphed,
-            "lanes_steps": dict(env.step_graphs.counts),
             "stage_steps": {k: dict(v) for k, v in env.stage_graphs.counts.items()}}
 
 

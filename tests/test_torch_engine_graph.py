@@ -1,5 +1,6 @@
-"""The lanes engine's control step replayed as one CUDA graph
-(`pbhc_tpu_torch/sim/step_graph.py`): the rule by which a step replays, the
+"""The lanes engine's control step replayed as one CUDA graph, the engine's
+stage of `StageGraphs` (`pbhc_tpu_torch/sim/step_graph.py`): the rule by
+which a step replays, the
 host-free index tables that make capture possible, the torque function's
 pure form, and on a card the graphed step against the eager one.
 
@@ -8,6 +9,7 @@ This file imports no JAX. Its `cuda` tests run on the card with
 and skip without one.
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -35,12 +37,15 @@ def lanes():
 
 def test_graph_is_eligible_on_a_card_with_the_engine_unhooked(lanes):
     assert step_graph.eligible(lanes, CUDA)
-    assert step_graph.eligible(lanes, "cuda:0", None)
+    assert step_graph.eligible(lanes, "cuda:0")
 
 
 def test_graph_is_not_eligible_off_a_card_or_with_a_pre_substep_hook(lanes):
     assert not step_graph.eligible(lanes, torch.device("cpu"))
-    assert not step_graph.eligible(lanes, CUDA, pre_substep_fn=lambda st: st)
+    env = types.SimpleNamespace(device=CUDA, lanes_engine=lanes, use_sdc=False)
+    assert step_graph.engine_eligible(env)
+    env.use_sdc = True          # soft dynamic correction: a pre-substep hook
+    assert not step_graph.engine_eligible(env)
 
 
 @pytest.mark.parametrize("name", SHADOWED)
@@ -139,7 +144,7 @@ def test_pure_torques_match_the_closure_from_one_generator_state():
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     env.gen.set_state(g0)
-    assert torch.equal(env._torque_fn(state, target, kp, kd)(state.sim), want[0])
+    assert torch.equal(env._torques(env._torque_inputs(state, target, kp, kd), state.sim), want[0])
 
 
 def test_a_cpu_env_steps_its_lanes_engine_eagerly():
@@ -148,7 +153,7 @@ def test_a_cpu_env_steps_its_lanes_engine_eagerly():
     with torch.no_grad():
         for _ in range(2):
             state, obs, *_ = env.step(state, batch_eval.act_mean(actor, obs))
-    assert env.step_graphs.counts == {"graphed": 0, "eager": 2} and not env.step_graphs.graphs
+    assert env.stage_graphs.counts["engine"] == {"graphed": 0, "eager": 2} and not env.stage_graphs.graphs
 
 
 # ---------------------------------------------------------------- on the card
@@ -186,10 +191,10 @@ def test_graphed_control_steps_match_eager_ones(cuda_device):
     with torch.no_grad():
         for _ in range(3):          # the first runs eagerly and captures; the next replay
             state, obs, *_ = env.step(state, batch_eval.act_mean(actor, obs))
-    assert env.step_graphs.counts == {"graphed": 2, "eager": 1}
+    assert env.stage_graphs.counts["engine"] == {"graphed": 2, "eager": 1}
     g0 = env.gen.get_state()
     graphed = _steps(env, actor, state, obs, 8)
-    assert env.step_graphs.counts["graphed"] == 10
+    assert env.stage_graphs.counts["engine"]["graphed"] == 10
     env.gen.set_state(g0)
     lanes = env.lanes_engine
     lanes.control_step_batched = lanes.control_step_batched   # shadowed: eager
@@ -197,7 +202,7 @@ def test_graphed_control_steps_match_eager_ones(cuda_device):
         eager = _steps(env, actor, state, obs, 8)
     finally:
         del lanes.control_step_batched
-    assert env.step_graphs.counts == {"graphed": 10, "eager": 9}
+    assert env.stage_graphs.counts["engine"] == {"graphed": 10, "eager": 9}
     for i, (a, b) in enumerate(zip(graphed, eager)):
         for k in a:
             if k == "sim.contact_forces":
@@ -223,7 +228,7 @@ def test_replays_count_kernel_1_and_a_recorded_step_runs_eagerly(cuda_device):
     step()
     before, modes = contact_kernel.apgd_lanes.launches, dict(contact_kernel.apgd_lanes.mode_launches)
     step()
-    assert env.step_graphs.counts == {"graphed": 2, "eager": 1}
+    assert env.stage_graphs.counts["engine"] == {"graphed": 2, "eager": 1}
     assert contact_kernel.apgd_lanes.launches - before == env.decimation == 4
     assert contact_kernel.apgd_lanes.mode_launches["float32"] - modes["float32"] == 4
     recorder = StepRecorder(env, HostCopies(cuda_device))
@@ -232,9 +237,9 @@ def test_replays_count_kernel_1_and_a_recorded_step_runs_eagerly(cuda_device):
     torch.cuda.synchronize()
     rec = recorder.record
     assert len(rec["subs"]) == 4 and len(rec["solves"]) == 4
-    assert env.step_graphs.counts == {"graphed": 2, "eager": 2}
+    assert env.stage_graphs.counts["engine"] == {"graphed": 2, "eager": 2}
     before = contact_kernel.apgd_lanes.launches
     step()
-    assert env.step_graphs.counts == {"graphed": 3, "eager": 2}
+    assert env.stage_graphs.counts["engine"] == {"graphed": 3, "eager": 2}
     assert contact_kernel.apgd_lanes.launches - before == 4
     assert torch.isfinite(state.sim.body_pos).all()

@@ -1,4 +1,5 @@
-"""The env's stages of a control step replayed as CUDA graphs
+"""The five stages of a control step, the lanes engine's among them,
+replayed as CUDA graphs
 (`pbhc_tpu_torch/sim/step_graph.py`, `StageGraphs`): a step that reads no
 host data, the rule by which its stages replay, and the data flow of a
 replay. On the CPU a stand-in graph replays a stage by running its captured
@@ -220,6 +221,7 @@ def stand_in(monkeypatch):
     monkeypatch.setattr(step_graph, "_capture", _capture)
     monkeypatch.setattr(step_graph, "_observed", lambda fn, args: (fn(*args), 0))
     monkeypatch.setattr(step_graph, "env_eligible", lambda env: rule["on"])
+    monkeypatch.setattr(step_graph, "engine_eligible", lambda env: rule["on"])
     return rule
 
 
@@ -234,8 +236,8 @@ def _run(env, actor, state, obs, n):
 
 
 def test_replayed_stages_match_the_eager_step(loaded, stand_in):
-    """After a first step that captures every stage, eight steps with resets
-    replay them; the same steps run eagerly from the same state and
+    """After a first step that captures every stage, the engine's among them,
+    eight steps with resets replay them; the same steps run eagerly from the same state and
     generator state give the same outputs bit for bit, and leave the
     generator where the replays left it."""
     _, env, actor = loaded
@@ -248,7 +250,7 @@ def test_replayed_stages_match_the_eager_step(loaded, stand_in):
     g_graphed = env.gen.get_state()
     counts = env.stage_graphs.counts
     assert all(c == {"graphed": 8, "eager": 1} for c in counts.values()), counts
-    assert len(env.stage_graphs.graphs) == 4
+    assert len(env.stage_graphs.graphs) == 5
     for graph in env.stage_graphs.graphs.values():
         assert {id(g) for g in graph.graph.generators} == {id(env.gen), id(env.shared_gen)}
     stand_in["on"] = False
@@ -283,18 +285,25 @@ def test_a_replay_copies_in_only_what_its_stage_reads_and_hands_back_the_rest(lo
     assert len(bases) <= 3
 
 
-def test_replaced_env_tensors_capture_the_stage_anew(loaded, stand_in):
+# an env tensor and where it is held: an attribute of the env, or a value of
+# one of its dicts (the engine's lanes parameters)
+REPLACED = {"p_gains": vars, "paramsT.mass": lambda env: env.paramsT}
+
+
+@pytest.mark.parametrize("replaced", sorted(REPLACED))
+def test_replaced_env_tensors_capture_the_stage_anew(loaded, stand_in, replaced):
     _, env, actor = loaded
     env.stage_graphs = step_graph.StageGraphs()
     state, obs = batch_eval.start_episodes(env)
     _, state, obs = _run(env, actor, state, obs, 2)
     before = dict(env.stage_graphs.graphs)
-    gains = env.p_gains
-    env.p_gains = gains.clone()
+    holder, name = REPLACED[replaced](env), replaced.rsplit(".", 1)[-1]
+    tensor = holder[name]
+    holder[name] = tensor.clone()
     try:
         _run(env, actor, state, obs, 1)
     finally:
-        env.p_gains = gains
+        holder[name] = tensor
     assert all(c == {"graphed": 1, "eager": 2} for c in env.stage_graphs.counts.values())
     assert all(env.stage_graphs.graphs[k] is not g for k, g in before.items())
 

@@ -248,7 +248,7 @@ def _pd_torques(env, state):
     """`env`'s torque function at `state` towards the default pose + 0.1."""
     target = state.default_dof_pos + 0.1
     kp, kd = state.kp_scale * env.p_gains, state.kd_scale * env.d_gains
-    return env._torque_fn(state, target, kp, kd)(state.sim)
+    return env._torques(env._torque_inputs(state, target, kp, kd), state.sim)
 
 
 def test_parallel_serial_tau_on_the_per_env_branch():

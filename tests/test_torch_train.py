@@ -43,8 +43,8 @@ from pbhc_tpu_torch.utils.checkpoint import load_checkpoint_payload, save_checkp
 SELS = ["exp=motion_tracking", "robot=g1_23dof", "obs=motion_tracking", "rewards=motion_tracking",
         "domain_rand=main", "simulator=tpu"]
 MOTION = "robot.motion.motion_file=assets/motions/Horse-stance_punch.pkl"
-# the overrides of the slice's commands: the training CLI, `pbhc_tpu_torch.bench`
-# (both solvers) and the CPU tests
+# override sets the composer must take as JAX's does: the training CLI's at
+# 4096 envs on both solvers, and the CPU tests'
 SLICE_OVERRIDES = [
     [],
     ["num_envs=4096", MOTION, "algo.config.num_learning_iterations=100"],
