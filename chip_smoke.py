@@ -52,9 +52,11 @@ holds every CUDA kernel they launch against its plain PyTorch version:
   solvers (kernels 1 and 2).
 Phases, each announced when it starts and when it ends:
 
-  build            - compile both kernels from `pbhc_tpu_torch/csrc/` (nvcc, sm_90a, in parallel)
+  build            - compile the kernels from `pbhc_tpu_torch/csrc/` (nvcc, sm_90a, in parallel)
   kernel           - each kernel vs its plain version at R = 12 and 38 rows (kernel 1 also at N = 2048,
                      1024 and 64, and in its bfloat16 and float16 matvec modes), with timings
+  dynamics         - kernel 3 (both entries) vs its plain version at the 23-DoF model's 4096 envs and the
+                     29-DoF model's 2048, with timings and bounds (`kernel_bench.bench_dynamics`)
   substep          - one lanes control step at 4096 envs, kernel 1 vs plain solve
   substep-allrows  - the same with `contact_cap: 0` (every row, R = 38)
   substep-envfirst - one env-first control step at 4096 envs, kernel 2 vs plain solve
@@ -195,6 +197,11 @@ KERNEL_ATOL = 1e-4
 #   max abs 1e-2 and mean abs 3e-6 (the mean bound tests/test_torch_engine_
 #   lanes.py holds the plain version to JAX by).
 MV_ATOL, MV_MEAN_ATOL = 1e-2, 3e-6
+# - kernel 3 vs its plain version (tests/test_torch_cuda_kernel.py states
+#   why), each field's largest difference over its scale (at least 1):
+#   positions 1e-5, velocities 1e-4, M^-1 1e-4.
+DYN_TOL = {"u_plus": 1e-4, "M_inv": 1e-4, "Jf": 1e-5, "phi": 1e-5, "C": 1e-5, "body_pos": 1e-5,
+            "body_quat": 1e-5, "body_lin_vel": 1e-4, "body_ang_vel": 1e-4}
 # the kernels of the `kernels` line: kernel 1 in each matvec mode, kernel 2
 LANES_NAMES = {"float32": "apgd_lanes", "bfloat16": "apgd_lanes_bf16", "float16": "apgd_lanes_f16"}
 KERNEL_NAMES = (*LANES_NAMES.values(), "apgd_envfirst")
@@ -634,7 +641,7 @@ def main():
     from pbhc_tpu_torch.envs.general_tracking_env import GeneralTrackingEnv
     from pbhc_tpu_torch.envs.tracking_env import MotionTrackingEnv
     from pbhc_tpu_torch.eval import batch_eval, kernel_bench
-    from pbhc_tpu_torch.sim import contact_kernel
+    from pbhc_tpu_torch.sim import contact_kernel, dynamics_kernel
     from pbhc_tpu_torch.utils import nvcc
     from pbhc_tpu_torch.utils.checkpoint import OPT_KEY, load_checkpoint_payload
 
@@ -667,7 +674,7 @@ def main():
 
     with phase("build"):
         t0 = time.perf_counter()
-        logs = nvcc.build(contact_kernel.LIBRARIES)
+        logs = nvcc.build(contact_kernel.LIBRARIES + dynamics_kernel.LIBRARIES)
         log(f"build seconds: {time.perf_counter() - t0:.2f}")
         for name, out in logs.items():
             for line in out.splitlines():
@@ -709,6 +716,15 @@ def main():
                     log(f"FAIL: {name} disagrees with its plain version at R={R}")
                     ok = False
                 del args, out, ref
+
+    with phase("dynamics"):
+        dynamics = kernel_bench.bench_dynamics(reps=50, envs=(1, 2, 4, 8))
+        for line in dynamics:
+            log(json.dumps(line))
+            bad = {f: e for f, e in line["max_err"].items() if not e <= DYN_TOL[f]}
+            if bad or not line["finite"]:
+                log(f"FAIL: {line['kernel']} on {line['robot']} at N = {line['N']} parts from its plain version: {bad}")
+                ok = False
 
     def lanes_step_check(env, state, obs, act, rows, mode="float32", path=None):
         """One lanes control step of `env` (after SETTLE_STEPS under `act`),
@@ -1632,6 +1648,9 @@ def main():
                         launches_by_path=dict(launches[name]),
                         library_ms=None, **stats[name])
                    for name, (src, rep) in sources.items()]
+        # kernel 3 replaces no TPU kernel (the JAX package leaves the chain to XLA)
+        kernels += [dict(name=line["kernel"], route="cuda", source="pbhc_tpu_torch/csrc/lanes_dynamics.cu",
+                         replaces=None, library_ms=None, **line) for line in dynamics]
         log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,6 @@
-"""Time the two APGD contact kernels on the card, against their plain
-versions, their bounds and, optionally, another build of the same kernels.
+"""Time the CUDA kernels on the card, against their plain versions, their
+bounds and, for the two APGD contact kernels, optionally another build of
+the same kernels.
 Kernel 1 is timed in each matvec mode (`apgd_lanes` in float32,
 `apgd_lanes_bf16`, `apgd_lanes_f16`: `contact_matvec_dtype` bfloat16 and
 float16), each against the plain version in the same mode.
@@ -24,6 +25,18 @@ earlier, current, current, earlier; both through the bare launch function.
 `envs=` and `parts=` also time the current design at each tile of the
 listed widths E and threads per contact P that it takes (the defaults: the
 kernel's own choice). The last line is the card's name and power limit.
+
+    python -m pbhc_tpu_torch.eval.kernel_bench dynamics [reps=50] [envs=1,2,4,8]
+
+times kernel 3 (`sim/dynamics_kernel.py`: `lanes_dynamics` and its
+body-state entry `lanes_body_state`) at the benchmark's shapes, the 23-DoF
+side-kick model at 4096 envs and the 29-DoF KungfuBot2 model at 2048, on
+random states (`dynamics_problem`): one JSON line per kernel and model with
+its errors against the plain version (`max_err`, each field's largest
+difference over its largest magnitude, at least 1), `ms`, `ms_device`, the plain
+version's `plain_ms` and `bound_ms` (every input read once and every output
+written once at 3.35 TB/s), and with `envs=` the device time at each
+listed envs-per-block.
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -190,6 +203,97 @@ def _launcher(lib, k: Kernel, args, R, N, iters):
     return run
 
 
+# kernel 3's shapes: (robot, num_envs) of the benchmark's cells
+DYNAMICS_SHAPES = (("g1_23dof_lock_wrist", 4096), ("g1_29dof_rev_1_0", 2048))
+
+
+def dynamics_problem(lanes, N, seed):
+    """Inputs of `LanesEngine._pre_contact` on the engine's device: the
+    default params with mass and com perturbed (as domain randomisation
+    does), random joint angles and velocities, root orientation and motion,
+    and torques; (paramsT, stateT, tauT)."""
+    import dataclasses
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dev = lanes.device
+    t = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
+    params = lanes.e.default_params()
+    batched = dataclasses.replace(params, **{f.name: getattr(params, f.name).expand(
+        (N,) + getattr(params, f.name).shape).clone() for f in dataclasses.fields(params)})
+    P = lanes.params_to_lanes(batched)
+    P["mass"] = P["mass"] * t(rng.uniform(0.8, 1.2, P["mass"].shape))
+    P["com"] = P["com"] + t(rng.normal(0.0, 0.01, P["com"].shape))
+    nd = lanes.nd
+    quat = rng.normal(size=(4, N))
+    quat /= np.linalg.norm(quat, axis=0)
+    state = dict(q=t(rng.uniform(-0.8, 0.8, (nd, N))), qd=t(rng.normal(0.0, 2.0, (nd, N))), rq=t(quat),
+                 rp=t(rng.normal(0.0, 0.3, (3, N)) + np.array([[0.0], [0.0], [0.8]])),
+                 rv=t(rng.normal(0.0, 1.0, (3, N))), rw=t(rng.normal(0.0, 1.0, (3, N))))
+    return P, state, t(rng.normal(0.0, 20.0, (nd, N)))
+
+
+def dynamics_bound_ms(dims, N):
+    """Kernel 3: inputs (q, qd, tau, armature, damping, frictionloss, the
+    root's 13 floats, mass, com, inertia) read once and outputs (u_plus,
+    M_inv, Jf, x, phi_p, C) written once, at the memory rate; and the
+    body-state entry's (q, qd, the root; body pos, quat, twists)."""
+    nb, nd, nv, K, P = (dims[k] for k in ("nb", "nd", "nv", "K", "P"))
+    dyn = 6 * nd + 13 + 13 * nb + nv + nv * nv + 3 * (K + P) * nv + 3 * K + P + 9 * P
+    body = 2 * nd + 13 + 13 * nb
+    return {"lanes_dynamics": 1e3 * 4 * N * dyn / H100_BYTES_PER_S,
+            "lanes_body_state": 1e3 * 4 * N * body / H100_BYTES_PER_S}
+
+
+def bench_dynamics(reps=50, envs=()):
+    """Kernel 3 at `DYNAMICS_SHAPES`: one dict per kernel and shape (see the
+    module docstring)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_bench measures the card: no CUDA device visible")
+    from pbhc_tpu_torch.model.g1 import load_g1_sim_model
+    from pbhc_tpu_torch.sim import dynamics_kernel as dk
+    from pbhc_tpu_torch.sim.engine import Engine, EngineOptions
+
+    dev = torch.device("cuda:0")
+    lib = dk._library()
+    lines = []
+    for robot, N in DYNAMICS_SHAPES:
+        lanes = Engine(load_g1_sim_model(robot), EngineOptions(), device=dev).lanes()
+        P, st, tau = dynamics_problem(lanes, N, 0)
+        bounds = dynamics_bound_ms(lanes.tables.dims, N)
+        ref = lanes._pre_contact_plain(P, st, tau)
+        body_ref = lanes._body_state_plain(st)
+        runs = {
+            "lanes_dynamics": (lambda E=0: dk.launch_dynamics(lib, lanes.tables, P, st, tau, lanes.opt.dt, True, E),
+                               lambda: lanes._pre_contact_plain(P, st, tau)),
+            "lanes_body_state": (lambda E=0: dk.launch_body_state(lib, lanes.tables, st, E),
+                                 lambda: lanes._body_state_plain(st)),
+        }
+        for name, (run, plain) in runs.items():
+            out = run()
+            if name == "lanes_dynamics":
+                out = dk.finish(lanes, *out)
+                fields = dict(zip(("u_plus", "M_inv", "Jf", "phi", "C"), zip(out, ref)))
+            else:
+                fields = dict(zip(("body_pos", "body_quat", "body_lin_vel", "body_ang_vel"), zip(out, body_ref)))
+            errs = {f: float((a - b).abs().max()) / max(1.0, float(b.abs().max())) for f, (a, b) in fields.items()}
+            line = {"kernel": name, "robot": robot, "N": N, "dims": lanes.tables.dims,
+                    "E": dk.envs(lanes.tables, name == "lanes_body_state"), "max_err": errs,
+                    "finite": all(bool(torch.isfinite(x).all()) for x in out if x is not None),
+                    "ms": cuda_ms(run, reps), "ms_device": device_ms(run, reps, name),
+                    "plain_ms": cuda_ms(plain, max(1, reps // 10)), "bound_ms": bounds[name], "bound_by": "bytes"}
+            for E in envs:
+                try:
+                    line.setdefault("ms_device_by_envs", {})[E] = device_ms(lambda E=E: run(E), reps, name)
+                except ValueError:   # more shared memory than a block may have
+                    line.setdefault("ms_device_by_envs", {})[E] = None
+            lines.append(line)
+        del lanes, P, st, tau, ref, body_ref
+        torch.cuda.empty_cache()
+    return lines
+
+
 def bench(rows=(12, 38), num_envs=4096, iters=16, reps=50, envs=(), parts=(), old=None):
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_bench measures the card: no CUDA device visible")
@@ -259,12 +363,17 @@ def bench(rows=(12, 38), num_envs=4096, iters=16, reps=50, envs=(), parts=(), ol
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    kv = dict(a.split("=", 1) for a in argv)
+    dynamics = "dynamics" in argv
+    kv = dict(a.split("=", 1) for a in argv if a != "dynamics")
     kw = {}
     for k, v in kv.items():
         kw[k] = (v if k == "old" else tuple(int(x) for x in v.split(",")) if k in ("rows", "envs", "parts")
                  else int(v))
-    for line in bench(**kw):
+    if dynamics:
+        lines = bench_dynamics(**{k: v for k, v in kw.items() if k in ("reps", "envs")})
+    else:
+        lines = bench(**kw)
+    for line in lines:
         print(json.dumps(line), flush=True)
     print(card_line(), flush=True)
 

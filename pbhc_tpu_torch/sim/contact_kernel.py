@@ -173,7 +173,7 @@ def _check(kernel: str, want: dict):
         if t.dtype != torch.float32:
             raise TypeError(f"{kernel}: {name} is {t.dtype}, the kernel takes float32")
         if t.device != device:
-            raise ValueError(f"{kernel}: {name} is on {t.device}, A on {device}")
+            raise ValueError(f"{kernel}: {name} is on {t.device}, the first input on {device}")
 
 
 def apgd_lanes(A, b, mu, active, x0, iters: int, mv_dtype: str = "float32"):

@@ -8,7 +8,11 @@ RNEA bias in root-anchored world-axis spatial coordinates (f32 relies on that
 anchoring), a branch-sparse Cholesky SPD inverse, contact Jacobians with
 class-budgeted active-set rows, the APGD contact solve (kernel 1,
 `sim/contact_kernel.py`), the energy safeguard, the split-impulse position
-pass and semi-implicit Euler. `contact_matvec_dtype` and
+pass and semi-implicit Euler. On a CUDA device the dynamics up to the
+contact solve (`_pre_contact`) and the body caches (`derived_state_lanes`)
+run in kernel 3 (`sim/dynamics_kernel.py`); the PyTorch bodies below
+(`_pre_contact_plain`, `_body_state_plain`) are its plain version and the
+CPU path. `contact_matvec_dtype` and
 `lanes_contact_kernel` are read as JAX reads them (`engine_lanes.py:583-624`;
 see `EngineOptions`).
 
@@ -27,6 +31,7 @@ import torch
 from pbhc_tpu_torch.maths import rotations as rot
 from pbhc_tpu_torch.model.kinematics import _level_order
 from pbhc_tpu_torch.sim.contact_kernel import apgd_lanes, matvec_plain, round_to
+from pbhc_tpu_torch.sim.dynamics_kernel import ModelTables, lanes_body_state, lanes_dynamics
 from pbhc_tpu_torch.sim.engine import GRAVITY, Engine, SimParams, SimState, active_set_indices
 from pbhc_tpu_torch.utils.profiling import span
 
@@ -178,6 +183,8 @@ class LanesEngine:
                 raise ValueError(f"non-contiguous dof group {g}")
             groups.append((int(g[0]), int(g[-1]) + 1))
         self._dof_groups = groups                                # [(first, end)] host ints
+        # the tables above, packed once for kernel 3
+        self.tables = ModelTables(self)
 
     # ------------------------------------------------------------------ FK
     def _fk(self, dof_pos, root_quat, root_pos):
@@ -202,7 +209,18 @@ class LanesEngine:
 
     # ------------------------------------------------------------- derived
     def derived_state_lanes(self, stT, states_env_first, contact_forces=None):
-        """Refresh body pose/velocity caches from lanes state (`engine_lanes.py:245`)."""
+        """Refresh body pose/velocity caches from lanes state (`engine_lanes.py:245`):
+        kernel 3's body-state entry for CUDA tensors, `_body_state_plain` for CPU ones."""
+        pos, quat, lin_vel, ang_vel = lanes_body_state(self, stT)
+        out = dataclasses.replace(states_env_first, body_pos=pos, body_quat=quat, body_lin_vel=lin_vel,
+                                  body_ang_vel=ang_vel)
+        if contact_forces is not None:
+            out = dataclasses.replace(out, contact_forces=contact_forces)
+        return out
+
+    def _body_state_plain(self, stT):
+        """body_pos, body_quat, body_lin_vel, body_ang_vel (env-first) of the
+        lanes state: FK, then the body twists level by level."""
         N = stT["q"].shape[-1]
         p_w, R_w = self._fk(stT["q"], stT["rq"], stT["rp"])
         ax_b = torch.cat([self._axis, torch.zeros((3, 1), device=self.device)], dim=1)[:, self._joint_slot]
@@ -217,16 +235,8 @@ class LanesEngine:
             w_acc = torch.cat([w_acc, w_new], dim=1)
             v_acc = torch.cat([v_acc, v_new], dim=1)
         v, w = v_acc[:, self._pos], w_acc[:, self._pos]
-        out = dataclasses.replace(
-            states_env_first,
-            body_pos=p_w.permute(2, 1, 0).contiguous(),
-            body_quat=rot.matrix_to_quat(R_w.permute(3, 2, 0, 1)),
-            body_lin_vel=v.permute(2, 1, 0).contiguous(),
-            body_ang_vel=w.permute(2, 1, 0).contiguous(),
-        )
-        if contact_forces is not None:
-            out = dataclasses.replace(out, contact_forces=contact_forces)
-        return out
+        return (p_w.permute(2, 1, 0).contiguous(), rot.matrix_to_quat(R_w.permute(3, 2, 0, 1)),
+                v.permute(2, 1, 0).contiguous(), w.permute(2, 1, 0).contiguous())
 
     # --------------------------------------------------------- spatial algebra
     def _spatial_quantities(self, paramsT, p_w, R_w):
@@ -366,10 +376,15 @@ class LanesEngine:
 
     # ------------------------------------------------------------------ substep
     def _pre_contact(self, paramsT, stateT, tauT):
-        """Dynamics up to the contact solve, env-last (`engine_lanes.py:488-560`).
+        """Dynamics up to the contact solve, env-last (`engine_lanes.py:488-560`):
+        kernel 3 for CUDA tensors, `_pre_contact_plain` for CPU tensors.
         Returns u_plus [nv,N], M_inv [nv,nv,N], Jf [KT*3,nv,N] (rows k-major,
         ground rows masked by ancestry), phi [KT,N] and the pair-row contact
         frames C [3,3,P,N] (None without pairs)."""
+        return lanes_dynamics(self, paramsT, stateT, tauT)
+
+    def _pre_contact_plain(self, paramsT, stateT, tauT):
+        """`_pre_contact` in plain PyTorch."""
         opt = self.opt
         nv, K = self.nv, self.K
         N = tauT.shape[-1]

@@ -50,8 +50,8 @@ The spans inside the engine (`engine.dynamics`, `engine.contact`,
 `engine.position_pass`) and inside a stage (`env.future_targets`) fire only
 on eager steps: a replay issues no op from Python. A replay sits inside
 its stage's span, in `engine.graph_replay` for the engine's stage and in
-`env.graph_replay` for the others. Kernel 1's launch counters count
-replays: each adds the launches its capture made.
+`env.graph_replay` for the others. The kernels' launch counters
+(`COUNTERS`) count replays: each adds the launches its capture made.
 """
 from __future__ import annotations
 
@@ -63,8 +63,13 @@ import warnings
 import torch
 from torch.overrides import TorchFunctionMode
 
-from pbhc_tpu_torch.sim.contact_kernel import apgd_lanes
+from pbhc_tpu_torch.sim.contact_kernel import apgd_envfirst, apgd_lanes
+from pbhc_tpu_torch.sim.dynamics_kernel import lanes_body_state, lanes_dynamics
 from pbhc_tpu_torch.utils.profiling import SYNC_WARNING, span
+
+# the counted kernel wrappers: a replay adds to each one's `launches` (and
+# to kernel 1's `mode_launches`) what its capture launched
+COUNTERS = (apgd_lanes, apgd_envfirst, lanes_dynamics, lanes_body_state)
 
 # the engine methods whose shadowing on the instance keeps a step eager
 # (`contact_solve` is an instance attribute: it keeps the step eager when it
@@ -240,6 +245,18 @@ def _capture(graph, region):
         return region()
 
 
+def _counts() -> list:
+    """Every counter of `COUNTERS`, then kernel 1's by mode."""
+    return [w.launches for w in COUNTERS] + list(apgd_lanes.mode_launches.values())
+
+
+def _set_counts(counts: list):
+    for w, n in zip(COUNTERS, counts):
+        w.launches = n
+    for m, n in zip(list(apgd_lanes.mode_launches), counts[len(COUNTERS):]):
+        apgd_lanes.mode_launches[m] = n
+
+
 def _memory_order(t) -> list:
     """`t`'s dims from the outermost in memory to the innermost."""
     return sorted(range(t.dim()), key=lambda d: -t.stride(d))
@@ -251,7 +268,7 @@ class StageGraph:
     `spec`). `replay(leaves)` -> what `fn` returns on arguments of those
     tensors. `written` is true where the stage writes an argument in place:
     such a graph is never replayed. A capture issues no kernel: each replay
-    adds to kernel 1's counters the launches its capture made."""
+    adds to the counters (`COUNTERS`) the launches its capture made."""
 
     def __init__(self, fn, spec, leaves: list, generators, fixed: tuple):
         self.fixed = fixed
@@ -289,12 +306,11 @@ class StageGraph:
         self.graph = torch.cuda.CUDAGraph()
         for g in generators:
             self.graph.register_generator_state(g)
-        launches, modes = apgd_lanes.launches, dict(apgd_lanes.mode_launches)
+        before = _counts()
         self.spec, self.order, self.layout, self.packs = _capture(self.graph, region)
-        self.launches = apgd_lanes.launches - launches
-        self.mode_launches = {m: apgd_lanes.mode_launches[m] - n for m, n in modes.items()}
-        apgd_lanes.launches = launches
-        apgd_lanes.mode_launches.update(modes)
+        after = _counts()
+        self.launches = [b - a for a, b in zip(before, after)]
+        _set_counts(before)
         self.written = reads.written
         # the arguments the stage reads, copied in before each replay
         self.copy_in = [(i, static[i]) for i in sorted(reads.seen)]
@@ -307,9 +323,7 @@ class StageGraph:
         for i, buf in self.copy_in:
             buf.copy_(leaves[i])
         self.graph.replay()
-        apgd_lanes.launches += self.launches
-        for m, n in self.mode_launches.items():
-            apgd_lanes.mode_launches[m] += n
+        _set_counts([n + d for n, d in zip(_counts(), self.launches)])
         made = {dt: [v.view(shape).permute(back) for v, (_, shape, back) in
                      zip(p.clone().split([n for n, _, _ in self.layout[dt]]), self.layout[dt])]
                 for dt, p in self.packs.items()}

@@ -1,4 +1,4 @@
-"""The CUDA contact kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 This file imports no JAX, so it runs on the machine with the card, where the
 repo's conftest (which imports JAX) must be skipped:
@@ -21,12 +21,28 @@ way); the MoE and phase-aware networks the same. The per-env engine (`apgd`,
 `pgs`: plain PyTorch on both devices) and a lanes control step with soft
 dynamic correction (kernel 1 against its plain version inside it): 1e-3 of
 each field's scale, chip_smoke.py's control-step bound.
+Kernel 3 (`sim/dynamics_kernel.py`) against `_pre_contact_plain` and
+`_body_state_plain` on the card, each field's largest difference over its
+scale (its largest magnitude, at least 1, as chip_smoke.py's control-step
+check): positions (sphere centres and gaps, the Jacobian's lever arms, the
+pair frames, body poses and quaternions) 1e-5, velocities (u_plus, body
+twists) 1e-4, M^-1 1e-4 (the repo's own bounds for positions and
+velocities, tests/test_torch_engine_lanes.py). The two sum in other orders,
+the kernel fuses multiply-adds, and it inverts the dof groups by columns of
+L^-1 where the plain version goes by rows: M^-1 then differs by ~1.6e-5 of
+its scale, and at random states, where |u_plus| reaches ~10 m/s or rad/s,
+u_plus by up to 2.4e-4 absolute, 2.4e-5 of its scale (NVIDIA H100 80GB
+HBM3, 700 W). The gaps phi and the body positions come out equal bit for
+bit: the kernel forms the poses op for op as PyTorch does (the gaps pick the
+contact rows; a row flipped in one env of 4096 moved the benchmark's
+`step_gap` by 0.1).
 """
 import numpy as np
 import pytest
 import torch
 
 from pbhc_tpu_torch.sim import contact_kernel as ck
+from pbhc_tpu_torch.sim import dynamics_kernel as dk
 
 ATOL = 1e-4
 MV_ATOL, MV_MEAN_ATOL = 1e-2, 3e-6
@@ -373,3 +389,110 @@ def test_suite_config_2_launches_kernel_1(cuda_device):
     assert d["num_envs"] == 64 and res["value"] > 0 and all(np.isfinite(d["reward_sums"]))
     assert ck.apgd_lanes.launches == 4 * (d["warmup_steps"] + d["steps"])
     assert ck.apgd_envfirst.launches == 0
+
+
+# ------------------------------------------------------------------ kernel 3
+
+POS_TOL, VEL_TOL, MINV_TOL = 1e-5, 1e-4, 1e-4
+
+
+def _close(name, got, want, tol):
+    assert bool(torch.isfinite(got).all()), f"{name}: not finite"
+    err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+    assert err <= tol, f"{name}: max diff {err:.3e} of its scale > {tol:g}"
+
+
+def _dynamics_matches_plain(lanes, paramsT, stT, tauT):
+    """Kernel 3's two entries against the plain version on these inputs,
+    each launch counted once."""
+    before = (dk.lanes_dynamics.launches, dk.lanes_body_state.launches)
+    out = lanes._pre_contact(paramsT, stT, tauT)
+    body = dk.lanes_body_state(lanes, stT)
+    ref = lanes._pre_contact_plain(paramsT, stT, tauT)
+    body_ref = lanes._body_state_plain(stT)
+    torch.cuda.synchronize()
+    assert (dk.lanes_dynamics.launches, dk.lanes_body_state.launches) == (before[0] + 1, before[1] + 1)
+    # the gaps decide the contact rows and which are active: equal bit for bit
+    assert torch.equal(out[3], ref[3]), "phi"
+    assert torch.equal(body[0], body_ref[0]), "body_pos"
+    _close("u_plus", out[0], ref[0], VEL_TOL)
+    _close("M_inv", out[1], ref[1], MINV_TOL)
+    _close("Jf", out[2], ref[2], POS_TOL)
+    _close("phi", out[3], ref[3], POS_TOL)
+    if lanes.P:
+        _close("C", out[4], ref[4], POS_TOL)
+    else:
+        assert out[4] is None
+    for name, a, b, atol in zip(("body_pos", "body_quat", "body_lin_vel", "body_ang_vel"), body, body_ref,
+                                (POS_TOL, POS_TOL, VEL_TOL, VEL_TOL)):
+        _close(name, a, b, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot,N,options", [
+    ("g1_23dof_lock_wrist", 4096, {}), ("g1_23dof_lock_wrist", 4096, {"self_collision": False}),
+    ("g1_29dof_rev_1_0", 2048, {}), ("g1_29dof_rev_1_0", 2048, {"energy_projection": False}),
+    ("g1_29dof_rev_1_0", 1001, {"self_collision": False})])
+def test_dynamics_kernel_matches_plain(cuda_device, robot, N, options):
+    """Kernel 3 at the benchmark's shapes (kb1's 23-DoF model at 4096 envs,
+    kb2's 29-DoF model at 2048), with pairs and without, with the energy
+    projection off and at a ragged N, on random states."""
+    from pbhc_tpu_torch.eval.kernel_bench import dynamics_problem
+    from pbhc_tpu_torch.model.g1 import load_g1_sim_model
+    from pbhc_tpu_torch.sim.engine import Engine, EngineOptions
+
+    lanes = Engine(load_g1_sim_model(robot), EngineOptions(**options), device=cuda_device).lanes()
+    _dynamics_matches_plain(lanes, *dynamics_problem(lanes, N, N))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", ["kb1_side_kick", "kb2_teacher29_r5", "terrain_walk_v3"])
+def test_dynamics_kernel_matches_plain_on_rollout_states(cuda_device, run):
+    """Kernel 3 on the states of each path's rollout after 10 control steps
+    from clip start: the side-kick's policy at 4096 envs, the 29-DoF teacher's
+    env at 2048 holding the default pose, the heightfield run's policy at
+    4096 (its ground rows' gaps read the heightfield in PyTorch); the PD
+    torques of the step's targets."""
+    from pbhc_tpu_torch.eval import batch_eval
+
+    if run == "kb2_teacher29_r5":
+        env = _kb2_env(run, 2048, cuda_device)
+        state = env.reset_to_start(env.init_state())
+        obs, state.history = env.compute_observations(state)
+        act = lambda o: torch.zeros((2048, env.num_actions), device=cuda_device)
+    else:
+        ckpt = {"kb1_side_kick": "artifacts/kb1_side_kick/ckpt/model_10500.pkl",
+                "terrain_walk_v3": "artifacts/terrain_walk_v3/ckpt/model_6500.pkl"}[run]
+        env, actor, _ = batch_eval.load(ckpt, 4096, device=cuda_device)
+        state, obs = batch_eval.start_episodes(env)
+        act = lambda o: batch_eval.act_mean(actor, o)
+    with torch.no_grad():
+        for _ in range(10):
+            state, obs, _, _, _ = env.step(state, act(obs))
+        lanes = env.lanes_engine
+        assert lanes is not None and (run != "terrain_walk_v3" or env.terrain is not None)
+        target = act(obs) * env.action_scales + state.default_dof_pos
+        sim = state.sim
+        tau = torch.clamp(state.kp_scale * env.p_gains * (target - sim.dof_pos) - state.kd_scale * env.d_gains
+                          * sim.dof_vel, -env.torque_limits, env.torque_limits)
+        _dynamics_matches_plain(lanes, env.paramsT, lanes._to_lanes(sim), tau.T)
+
+
+@pytest.mark.cuda
+def test_graphed_control_step_counts_kernel_3(cuda_device):
+    """A graphed serving step adds 4 launches of kernel 3's dynamics entry
+    (one a substep), 1 of its body-state entry and 4 of kernel 1, as the
+    eager step does."""
+    from pbhc_tpu_torch.eval import batch_eval
+
+    env, actor, _ = batch_eval.load("artifacts/kb1_side_kick/ckpt/model_10500.pkl", 512, device=cuda_device)
+    state, obs = batch_eval.start_episodes(env)
+    counts = lambda: (dk.lanes_dynamics.launches, dk.lanes_body_state.launches, ck.apgd_lanes.launches)
+    for graphed in (0, 1, 2, 3):
+        before = counts()
+        with torch.no_grad():
+            state, obs, *_ = env.step(state, batch_eval.act_mean(actor, obs))
+        torch.cuda.synchronize()
+        assert env.stage_graphs.counts["engine"]["graphed"] == graphed
+        assert tuple(b - a for a, b in zip(before, counts())) == (4, 1, 4)
+    assert torch.isfinite(state.sim.body_pos).all()
