@@ -25,7 +25,8 @@ Three modes on one `MimicActorCritic`, with the JAX module's semantics:
 Each mode is a `rollout` phase and a `learn` phase, as in `MHPPO`, so that
 the training CLI times both; under a profiler they record MHPPO's spans
 (`learner.rollout`, `policy`, `learner.update`, `learner.gae`,
-`learner.minibatch`) and `learner.dagger` around the DAgger pass. Adam is `mh_ppo.Adam` (optax's global-norm clip
+`learner.minibatch`), `learner.dagger` around the DAgger pass and, inside
+`policy`, `teacher` around a distillation teacher's action. Adam is `mh_ppo.Adam` (optax's global-norm clip
 and Adam written out). Randomness comes from `torch.Generator`s on the env's
 device (actions from a per-rank one, minibatch permutations from one seeded
 alike on every rank; one generator for both in a single process); fresh
@@ -198,7 +199,8 @@ class PPOMimic:
                     data.update(actions=actions, logp=gaussian_log_prob(mean, std, actions), mean=mean, std=std,
                                 values=values)
                     if self.teacher is not None:
-                        data["teacher_actions"] = self.teacher(obs)
+                        with span("teacher"):
+                            data["teacher_actions"] = self.teacher(obs)
                 env_state, obs, rew, done, info = self.env.step(env_state, actions)
                 data.update(rewards=rew + self.gamma * values * info["time_outs"][:, None], dones=done)
                 for k, v in data.items():
