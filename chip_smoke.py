@@ -11,6 +11,9 @@ holds every CUDA kernel they launch against its plain PyTorch version:
   weights from seed 0; run directories under `build/chip_smoke/`), once with
   `solver: lanes` (kernel 1) and once with `solver: pallas` (kernel 2,
   `apgd_envfirst`);
+- in every one-process training phase, each learner minibatch step but the
+  first at its key replays a CUDA graph (`MHPPO._minibatch`; the counts
+  logged); the dp phase logs the one-process update's;
 - KungfuBot2 serving: `episode_ratio` on the committed 23-DoF teacher
   (`GeneralTrackingEnv`, Conv1d mimic networks) at 2048 envs over the
   whole clip (kernel 1);
@@ -89,7 +92,8 @@ Phases, each announced when it starts and when it ends:
   dp               - (a) one rollout of the train-lanes state split by env: its update on 2 gloo ranks
                      sharing the card against the one-process update (each tensor's distance over
                      its movement, lr; beside the one process with every minibatch's rows reversed
-                     and on other permutations); (b) the training CLI
+                     and on other permutations; the one-process update replayed against it eager, bit for
+                     bit); (b) the training CLI
                      under those 2 ranks, 2 x 2048 envs, 2 iterations (launches counted from 0 per rank:
                      96 per iteration each; replicas bit-identical; rank 0's checkpoint read back);
                      (c) the same under a 1-rank nccl group at 4096 envs; (d) `parallel.dryrun` on
@@ -672,6 +676,18 @@ def main():
                 log(f"FAIL: {path}: {name} launched {launches[name][path]} times, want {want.get(name, 0)}")
                 ok = False
 
+    def expect_replays(path, algo):
+        """Every minibatch step of a one-process training run replayed a CUDA
+        graph but the first at its key (`MHPPO._minibatch`); the counts logged."""
+        nonlocal ok
+        counts = {k: v for k, v in algo.graphs.counts.items() if v["graphed"] or v["eager"]}
+        keys = len(algo.graphs.graphs)
+        log(f"{path}: learner minibatch steps {counts}, {keys} captured")
+        if not counts or None in algo.graphs.graphs.values() or \
+                sum(v["eager"] for v in counts.values()) != keys:
+            log(f"FAIL: {path}: a minibatch step ran eagerly after its key's first call")
+            ok = False
+
     with phase("build"):
         t0 = time.perf_counter()
         logs = nvcc.build(contact_kernel.LIBRARIES + dynamics_kernel.LIBRARIES)
@@ -1001,6 +1017,7 @@ def main():
                 "algo.config.logging_interval=5", f"base_dir={base}", f"artifact_dir={base}/artifacts"]
             algo, ts, logs = count(path, lambda: train.main(argv))
             expect_launches(path, {kernel: 96 * iters, other: 0})
+            expect_replays(path, algo)
             bad = sorted({k for it_log in logs for k, v in it_log.items() if v != v or abs(v) == float("inf")})
             if bad or len(logs) != iters:
                 log(f"FAIL: {path}: {len(logs)} logged iterations, non-finite values {bad}")
@@ -1108,7 +1125,23 @@ def main():
             torch.cuda.synchronize()
             return params(), float(ts.lr), time.perf_counter() - t0
 
+        before = dict(algo.graphs.counts["_minibatch_update"])
         one, lr_one, learn_one_s = learn_once(perms)
+        log(f"dp (a): the one-process update's minibatch steps {before} -> {algo.graphs.counts['_minibatch_update']}"
+            " (graphed/eager)")
+        # the same update with every minibatch step eager (the step shadowed on
+        # the instance): the replayed steps must equal it bit for bit
+        algo._minibatch_update = algo._minibatch_update
+        try:
+            eager_one, lr_eager, _ = learn_once(perms)
+        finally:
+            del algo._minibatch_update
+        replay_gap = max(float(np.abs(a - b).max()) for a, b in zip(one, eager_one))
+        log(f"dp (a): the one-process update replayed against it eager: max abs diff {replay_gap:.3e}, lr "
+            f"{lr_one!r} vs {lr_eager!r}, steps {algo.graphs.counts['_minibatch_update']} (graphed/eager)")
+        if replay_gap != 0.0 or lr_eager != lr_one:
+            log("FAIL: dp: the replayed one-process update differs from the eager one")
+            ok = False
         # the same update with every minibatch's rows reversed (the same sums
         # in another order: the scale of rounding), and on other permutations
         # (other samples in every minibatch: the scale of a fault)
@@ -1245,6 +1278,7 @@ def main():
                                        f"base_dir={base}", f"artifact_dir={base}/artifacts",
                                        f"experiment_name=kb2_{role}"] + extra
         algo, ts, logs = count(path, lambda: train.main(argv))
+        expect_replays(path, algo)
         bad = sorted({k for it_log in logs for k, v in it_log.items() if v != v or abs(v) == float("inf")})
         if bad:
             log(f"FAIL: {path}: non-finite logged values {bad}")

@@ -26,6 +26,19 @@ envs' rows of the rollout: a minibatch is the rows of the global
 permutation's slice that fall in them, every loss is the rank's share of the
 global minibatch mean, and the gradients, the KL and the logged losses are
 summed over ranks (one all-reduce per minibatch) before the clip and Adam.
+
+On a card each minibatch step (`_minibatch_update`) replays a CUDA graph
+where `learner_eligible` allows (`_minibatch`, through
+`sim/step_graph.py::StageGraphs`): the forward, `torch.autograd.grad`, the
+losses, the KL-adaptive lr, the clip and Adam on every parameter, the same
+kernels in the same order, issued with one launch. The step's arguments are
+the lr and the minibatch; the lr it makes comes back out and is rebound on
+the train state. It holds the networks' parameters and buffers and the
+optimizers' lists by identity (`_learner_fixed`: an emptied or replaced list
+captures the step anew) and writes parameters and moments in place, never
+an argument. What a step takes from the host (Adam's step counts and bias
+corrections) is written into device scalars before each replay
+(`_host_values`), never while a step is captured (`capturing`).
 """
 from __future__ import annotations
 
@@ -39,12 +52,28 @@ import torch
 from pbhc_tpu_torch.agents.networks import (actor_from_config, critic_from_config, flax_init_,
                                             gaussian_entropy, gaussian_log_prob, phase_embed_config,
                                             phase_position)
+from pbhc_tpu_torch.sim.step_graph import StageGraphs
 from pbhc_tpu_torch.utils.profiling import span
+
+# the learner methods of one minibatch step: one shadowed on the learner
+# instance (a recorder, a planted fault) keeps every minibatch step eager
+LEARNER_STEPS = ("_minibatch_update", "update_rl", "update_distill")
+
+
+def capturing(t: torch.Tensor) -> bool:
+    """Whether the current stream of `t`'s device is being captured into a
+    CUDA graph: a host value written into `t` now would be baked into the
+    graph, so the learner writes it before each replay instead."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
 class Adam:
     """`optax.chain(clip_by_global_norm(max_norm), adam(lr))` over one
-    network's parameters (`mh_ppo.py:99-102`), with the lr given per step."""
+    network's parameters (`mh_ppo.py:99-102`), with the lr given per step.
+
+    The step's bias corrections are device scalars (`corrections`) that
+    `advance` writes from the host, so that a step captured as a CUDA graph
+    (`MHPPO._minibatch`) reads each replay's own."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
@@ -54,20 +83,37 @@ class Adam:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        device = self.params[0].device if self.params else None
+        self.corrections = [torch.ones((), device=device) for _ in range(2)]
+
+    def advance(self):
+        """Count one step and write its bias corrections, as optax forms them
+        (decay ** count in float32), into `corrections`: two fills, no sync.
+        On a CUDA device each is written as its float32 reciprocal and the
+        step multiplies by it, as PyTorch's CUDA kernels divide by a Python
+        float; elsewhere the step divides by it. Either way the step equals
+        the one that divided by Python floats, bit for bit."""
+        self.count += 1
+        for t, b in zip(self.corrections, (self.b1, self.b2)):
+            c = np.float32(1.0) - np.float32(b) ** np.float32(self.count)
+            t.fill_(float(np.float32(1.0) / c) if t.is_cuda else float(c))
 
     @torch.no_grad()
     def step(self, grads, lr):
+        """One clipped Adam step, counted by `advance` first; a step being
+        captured into a CUDA graph is not counted: its replays are
+        (`capturing`)."""
+        if not capturing(self.corrections[0]):
+            self.advance()
         g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         keep = g_norm < self.max_grad_norm
-        self.count += 1
-        # bias corrections as optax forms them: decay ** count in float32
-        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(self.count))
-        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(self.count))
+        c1, c2 = self.corrections
+        scale = torch.mul if c1.is_cuda else torch.div
         for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
             g = torch.where(keep, g, g / g_norm * self.max_grad_norm)
             m.copy_((1.0 - self.b1) * g + self.b1 * m)
             v.copy_((1.0 - self.b2) * (g * g) + self.b2 * v)
-            p.add_(-lr * ((m / bc1) / (torch.sqrt(v / bc2) + self.eps)))
+            p.add_(-lr * (scale(m, c1) / (torch.sqrt(scale(v, c2)) + self.eps)))
 
     def state_dict(self) -> dict:
         """Step count and moments as numpy arrays, in parameter order."""
@@ -82,6 +128,36 @@ class Adam:
         self.count = int(state["count"])
         for dst, a in (*zip(self.mu, state["mu"]), *zip(self.nu, state["nu"])):
             dst.copy_(torch.as_tensor(a))
+
+
+def train_state_parts(ts) -> tuple:
+    """The networks and the optimizers among the fields of the train state
+    `ts` (`TrainState`, PPOMimic's `MimicTrainState`), in field order."""
+    parts = [getattr(ts, f.name) for f in dataclasses.fields(ts)]
+    return [v for v in parts if isinstance(v, torch.nn.Module)], [v for v in parts if isinstance(v, Adam)]
+
+
+def learner_eligible(learner, optimizers) -> bool:
+    """Whether `learner`'s next minibatch step may replay: on a CUDA device,
+    in one process (a data-parallel step all-reduces its gradients
+    eagerly), with none of `LEARNER_STEPS` shadowed on the learner instance
+    and no `step` shadowed on one of the train state's `optimizers`. A step
+    whose first call ran a sync stays eager by `StageGraphs`' own check."""
+    return (torch.device(learner.device).type == "cuda" and not learner.shard.distributed
+            and not any(name in vars(learner) for name in LEARNER_STEPS)
+            and not any("step" in vars(o) for o in optimizers))
+
+
+def _learner_fixed(learner, nets, optimizers) -> tuple:
+    """What a minibatch step reads as fixed, held by identity: the learner's
+    own tensors, the networks' parameters and buffers, and the
+    `optimizers`' parameters, moments and bias corrections."""
+    held = [v for v in vars(learner).values() if isinstance(v, torch.Tensor)]
+    for net in nets:
+        held.extend((*net.parameters(), *net.buffers()))
+    for o in optimizers:
+        held.extend((*o.params, *o.mu, *o.nu, *o.corrections))
+    return tuple(held)
 
 
 @dataclasses.dataclass
@@ -131,6 +207,8 @@ class MHPPO:
         # phase-aware networks read the phase at its place in each obs group (`mh_ppo.py:67-87`)
         phase_aware = phase_embed_config(config)[0] != "Original"
         self.phase_pos = {g: phase_position(env, g) if phase_aware else None for g in ("actor_obs", "critic_obs")}
+        # the minibatch steps, replayed as CUDA graphs where the rules allow
+        self.graphs = StageGraphs(LEARNER_STEPS)
 
     # ------------------------------------------------------------------ setup
     def new_train_state(self, actor, critic, env_state=None, obs=None) -> TrainState:
@@ -211,68 +289,98 @@ class MHPPO:
         u = torch.rand(obs.shape[:-1] + (1,), generator=self.gen, device=obs.device) * 2 - 1
         return obs + u * (next_obs.to(torch.float32) - obs)
 
+    def _host_values(self, ts: TrainState, name: str):
+        """What the minibatch step `name` takes from the host, written to the
+        device before a replay of it: both optimizers' counts and bias
+        corrections."""
+        ts.actor_opt.advance()
+        ts.critic_opt.advance()
+
     def _minibatch_update(self, ts: TrainState, batch, rows: int | None = None) -> dict:
         """One Adam step of actor and critic on `batch` (`mh_ppo.py:167`), this
         rank's rows of a minibatch of `rows` rows in all (default: `batch`'s).
         Updates `ts` in place; returns the minibatch's metrics."""
+        avg = functools.partial(self.shard.share, rows=len(batch["actions"]) if rows is None else rows)
+        aobs = batch["actor_obs"].to(torch.float32)
+        mean, std = ts.actor(aobs)
+        logp = gaussian_log_prob(mean, std, batch["actions"])
+        ratio = torch.exp(logp - batch["logp"])
+        adv = batch["advantages"]
+        surr = -adv * ratio
+        surr_clipped = -adv * torch.clamp(ratio, 1 - self.clip, 1 + self.clip)
+        surrogate = avg(torch.maximum(surr, surr_clipped))
+        entropy = avg(gaussian_entropy(std))
+        a_loss = surrogate - self.entropy_coef * entropy
+        if self.l2c2:
+            u_mean, _ = ts.actor(self._l2c2_obs(aobs, batch["next_actor_obs"]))
+            a_loss = a_loss + float(self.config.l2c2.lambda_policy) * avg((batch["actions"] - u_mean) ** 2)
+        with torch.no_grad():
+            # KL for the adaptive lr (reference mh_ppo.py:469-483)
+            kl = avg(torch.sum(torch.log(std / batch["std"] + 1e-5)
+                               + (batch["std"] ** 2 + (batch["mean"] - mean) ** 2) / (2.0 * std ** 2) - 0.5,
+                               dim=-1))
+
+        cobs = batch["critic_obs"].to(torch.float32)
+        value = ts.critic(cobs)
+        target_v, returns = batch["values"], batch["returns"]
+        if self.use_clipped_value_loss:
+            v_clipped = target_v + torch.clamp(value - target_v, -self.clip, self.clip)
+            vloss = avg(torch.maximum((value - returns) ** 2, (v_clipped - returns) ** 2).sum(-1))
+        else:
+            vloss = avg(((returns - value) ** 2).sum(-1))
+        c_loss = self.value_loss_coef * vloss
+        if self.l2c2:
+            u_val = ts.critic(self._l2c2_obs(cobs, batch["next_critic_obs"]))
+            c_loss = c_loss + float(self.config.l2c2.lambda_value) * avg((value - u_val) ** 2)
+
+        a_grads = torch.autograd.grad(a_loss, ts.actor_opt.params)
+        c_grads = torch.autograd.grad(c_loss, ts.critic_opt.params)
+        # the ranks' shares summed: global gradients, KL and losses (one all-reduce)
+        na = len(a_grads)
+        *grads, kl, surrogate, vloss, entropy = self.shard.all_sum(
+            [*a_grads, *c_grads, kl, surrogate.detach(), vloss.detach(), entropy.detach()], dtype=torch.float32)
+        a_grads, c_grads = grads[:na], grads[na:]
+        # the adaptive lr of this step, from this minibatch's KL (`mh_ppo.py:213-219`)
+        lr = ts.lr
+        lr = torch.where(kl > self.desired_kl * 2.0, torch.clamp(lr / 1.5, min=1e-5),
+                         torch.where((kl < self.desired_kl / 2.0) & (kl > 0.0),
+                                     torch.clamp(lr * 1.5, max=1e-2), lr))
+        ts.lr = lr
+        ts.actor_opt.step(a_grads, lr)
+        ts.critic_opt.step(c_grads, lr)
+        return dict(surrogate=surrogate.detach(), value_loss=vloss.detach(), entropy=entropy.detach(),
+                    kl=kl)
+
+    def _minibatch(self, ts, name: str, batch, rows: int):
+        """`self.<name>(ts, batch, rows)`, the minibatch step `name` (one of
+        `LEARNER_STEPS`), in its `learner.minibatch` span. Where
+        `learner_eligible` allows, the class's method runs on a copy of `ts`
+        that takes the lr as an argument, captured at its first call and
+        replayed after (`StageGraphs.run_step`, the replay in
+        `learner.graph_replay`, `_host_values(ts, name)` written before
+        it), and `ts.lr` is rebound to the lr it makes; else the method
+        itself runs."""
         with span("learner.minibatch"):
-            avg = functools.partial(self.shard.share, rows=len(batch["actions"]) if rows is None else rows)
-            aobs = batch["actor_obs"].to(torch.float32)
-            mean, std = ts.actor(aobs)
-            logp = gaussian_log_prob(mean, std, batch["actions"])
-            ratio = torch.exp(logp - batch["logp"])
-            adv = batch["advantages"]
-            surr = -adv * ratio
-            surr_clipped = -adv * torch.clamp(ratio, 1 - self.clip, 1 + self.clip)
-            surrogate = avg(torch.maximum(surr, surr_clipped))
-            entropy = avg(gaussian_entropy(std))
-            a_loss = surrogate - self.entropy_coef * entropy
-            if self.l2c2:
-                u_mean, _ = ts.actor(self._l2c2_obs(aobs, batch["next_actor_obs"]))
-                a_loss = a_loss + float(self.config.l2c2.lambda_policy) * avg((batch["actions"] - u_mean) ** 2)
-            with torch.no_grad():
-                # KL for the adaptive lr (reference mh_ppo.py:469-483)
-                kl = avg(torch.sum(torch.log(std / batch["std"] + 1e-5)
-                                   + (batch["std"] ** 2 + (batch["mean"] - mean) ** 2) / (2.0 * std ** 2) - 0.5,
-                                   dim=-1))
+            nets, opts = train_state_parts(ts)
+            if not learner_eligible(self, opts):
+                return self.graphs.run_step(name, getattr(self, name), (ts, batch, rows), False)
+            method = getattr(type(self), name)
 
-            cobs = batch["critic_obs"].to(torch.float32)
-            value = ts.critic(cobs)
-            target_v, returns = batch["values"], batch["returns"]
-            if self.use_clipped_value_loss:
-                v_clipped = target_v + torch.clamp(value - target_v, -self.clip, self.clip)
-                vloss = avg(torch.maximum((value - returns) ** 2, (v_clipped - returns) ** 2).sum(-1))
-            else:
-                vloss = avg(((returns - value) ** 2).sum(-1))
-            c_loss = self.value_loss_coef * vloss
-            if self.l2c2:
-                u_val = ts.critic(self._l2c2_obs(cobs, batch["next_critic_obs"]))
-                c_loss = c_loss + float(self.config.l2c2.lambda_value) * avg((value - u_val) ** 2)
+            def step(lr, batch, rows):
+                view = dataclasses.replace(ts, lr=lr)
+                return method(self, view, batch, rows), view.lr
 
-            a_grads = torch.autograd.grad(a_loss, ts.actor_opt.params)
-            c_grads = torch.autograd.grad(c_loss, ts.critic_opt.params)
-            # the ranks' shares summed: global gradients, KL and losses (one all-reduce)
-            na = len(a_grads)
-            *grads, kl, surrogate, vloss, entropy = self.shard.all_sum(
-                [*a_grads, *c_grads, kl, surrogate.detach(), vloss.detach(), entropy.detach()], dtype=torch.float32)
-            a_grads, c_grads = grads[:na], grads[na:]
-            # the adaptive lr of this step, from this minibatch's KL (`mh_ppo.py:213-219`)
-            lr = ts.lr
-            lr = torch.where(kl > self.desired_kl * 2.0, torch.clamp(lr / 1.5, min=1e-5),
-                             torch.where((kl < self.desired_kl / 2.0) & (kl > 0.0),
-                                         torch.clamp(lr * 1.5, max=1e-2), lr))
-            ts.lr = lr
-            ts.actor_opt.step(a_grads, lr)
-            ts.critic_opt.step(c_grads, lr)
-            return dict(surrogate=surrogate.detach(), value_loss=vloss.detach(), entropy=entropy.detach(),
-                        kl=kl)
+            out, ts.lr = self.graphs.run_step(name, step, (ts.lr, batch, rows), True,
+                                              lambda: _learner_fixed(self, nets, opts), lambda: (self.gen,),
+                                              "learner.graph_replay", lambda: self._host_values(ts, name))
+            return out
 
     def learn(self, ts: TrainState, rollout, perms=None):
         """The update phase (`mh_ppo.py:235-287`) on a `rollout` (this rank's
         envs): GAE, then for each epoch's permutation of the global flat
         samples (`perms`, drawn from `perm_gen` when None) `num_minibatches`
-        minibatch updates. Updates `ts` in place and returns it with the
-        iteration's log (0-d tensors, not synchronised)."""
+        minibatch updates (`_minibatch`). Updates `ts` in place and returns
+        it with the iteration's log (0-d tensors, not synchronised)."""
         with span("learner.update"):
             env_state, obs, traj, env_logs = rollout
             with torch.no_grad():
@@ -291,7 +399,7 @@ class MHPPO:
             for perm in perms:
                 for i in range(self.num_minibatches):
                     idx = self.shard.local_rows(perm[i * mb:(i + 1) * mb])
-                    metrics.append(self._minibatch_update(ts, {k: v[idx] for k, v in flat.items()}, mb))
+                    metrics.append(self._minibatch(ts, "_minibatch_update", {k: v[idx] for k, v in flat.items()}, mb))
             mean = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
             log = {f"Env/{k}": v.mean() for k, v in env_logs.items()}
             log.update({

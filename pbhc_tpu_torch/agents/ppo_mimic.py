@@ -26,7 +26,10 @@ Each mode is a `rollout` phase and a `learn` phase, as in `MHPPO`, so that
 the training CLI times both; under a profiler they record MHPPO's spans
 (`learner.rollout`, `policy`, `learner.update`, `learner.gae`,
 `learner.minibatch`), `learner.dagger` around the DAgger pass and, inside
-`policy`, `teacher` around a distillation teacher's action. Adam is `mh_ppo.Adam` (optax's global-norm clip
+`policy`, `teacher` around a distillation teacher's action. On a card the RL
+and BC minibatch steps replay CUDA graphs as MHPPO's do, the `priv_reg`
+coefficient of the iteration a device scalar written before each; the
+DAgger pass stays eager. Adam is `mh_ppo.Adam` (optax's global-norm clip
 and Adam written out). Randomness comes from `torch.Generator`s on the env's
 device (actions from a per-rank one, minibatch permutations from one seeded
 alike on every rank; one generator for both in a single process); fresh
@@ -50,9 +53,11 @@ from typing import Dict
 import numpy as np
 import torch
 
+from pbhc_tpu_torch.agents import mh_ppo
 from pbhc_tpu_torch.agents.mh_ppo import MHPPO, Adam
 from pbhc_tpu_torch.agents.mimic_networks import MimicActorCritic, mimic_net_from_config
 from pbhc_tpu_torch.agents.networks import flax_init_, gaussian_entropy, gaussian_log_prob
+from pbhc_tpu_torch.sim.step_graph import StageGraphs
 from pbhc_tpu_torch.utils.profiling import span
 
 OBS_KEYS = ("actor_obs", "priv_obs", "future_motion_targets", "prop_history")
@@ -146,6 +151,10 @@ class PPOMimic:
         if env.obs_dim("future_motion_targets") % self.future_steps or \
                 env.obs_dim("prop_history") % self.history_steps:
             raise ValueError("future/history widths are not whole steps")
+        # the RL and BC minibatch steps, replayed as CUDA graphs where the
+        # rules allow, and the `priv_reg` coefficient they read on the device
+        self.graphs = StageGraphs(mh_ppo.LEARNER_STEPS)
+        self.priv_reg_scalar = torch.zeros((), device=self.device)
 
     # ------------------------------------------------------------------ setup
     def new_train_state(self, net, env_state=None, obs=None) -> MimicTrainState:
@@ -223,46 +232,63 @@ class PPOMimic:
         stage = np.clip((np.float32(iteration) - s[2]) / s[3], np.float32(0), np.float32(1))
         return float(stage * (s[1] - s[0]) + s[0])
 
+    def _priv_reg_coef_at(self, iteration: int) -> torch.Tensor:
+        """`priv_reg_coef(iteration)` written into the device scalar
+        `priv_reg_scalar` (one fill, no sync), but not while a step is being
+        captured into a CUDA graph: its replays write it first
+        (`_host_values`)."""
+        if not mh_ppo.capturing(self.priv_reg_scalar):
+            self.priv_reg_scalar.fill_(self.priv_reg_coef(iteration))
+        return self.priv_reg_scalar
+
+    def _host_values(self, ts: MimicTrainState, name: str):
+        """What the minibatch step `name` takes from the host, written to the
+        device before a replay of it: the optimizer's count and bias
+        corrections and, for `update_rl`, the iteration's `priv_reg`
+        coefficient."""
+        ts.opt.advance()
+        if name == "update_rl":
+            self._priv_reg_coef_at(ts.iteration)
+
     def update_rl(self, ts: MimicTrainState, batch, rows: int | None = None) -> dict:
         """One RL minibatch (`ppo_mimic.py:236`), this rank's rows of a
         minibatch of `rows` rows in all (default: `batch`'s); updates `ts` in
         place."""
-        with span("learner.minibatch"):
-            rows = len(batch["actions"]) if rows is None else rows
-            avg = functools.partial(self.shard.share, rows=rows)
-            net = ts.net
-            obs = {k: batch[k] for k in OBS_KEYS}
-            (mean, std), lb_a = net.act_lb(obs, False, dp=(self.shard, rows))
-            ratio = torch.exp(gaussian_log_prob(mean, std, batch["actions"]) - batch["logp"])
-            adv = batch["advantages"]
-            surr = avg(torch.maximum(-adv * ratio, -adv * torch.clamp(ratio, 1 - self.clip, 1 + self.clip)))
-            entropy = avg(gaussian_entropy(std))
-            value, lb_v = net.evaluate_lb(obs, dp=(self.shard, rows))
-            tv, ret = batch["values"], batch["returns"]
-            v_clip = tv + torch.clamp(value - tv, -self.clip, self.clip)
-            vloss = avg(torch.maximum((value - ret) ** 2, (v_clip - ret) ** 2).sum(-1))
-            priv_lat = net.priv_latent(batch["priv_obs"])
-            with torch.no_grad():
-                hist_lat = net.hist_latent(batch["prop_history"])
-            priv_reg = avg(torch.linalg.vector_norm(priv_lat - hist_lat, dim=-1))
-            lb = lb_a + lb_v
-            loss = (surr - self.entropy_coef * entropy + self.value_loss_coef * vloss
-                    + self.priv_reg_coef(ts.iteration) * priv_reg + self.lb_alpha * lb)
-            with torch.no_grad():
-                kl = avg(torch.sum(torch.log(std / batch["std"] + 1e-5)
-                                   + (batch["std"] ** 2 + (batch["mean"] - mean) ** 2) / (2.0 * std ** 2) - 0.5,
-                                   dim=-1))
-            # the ranks' shares summed: global gradients, KL and losses (one all-reduce)
-            *grads, kl, surr, vloss, entropy, priv_reg, lb = self.shard.all_sum(
-                [*_grads(loss, ts.opt.params), kl, *(x.detach() for x in (surr, vloss, entropy, priv_reg, lb))],
-                dtype=torch.float32)
-            lr = ts.lr
-            ts.lr = torch.where(kl > self.desired_kl * 2.0, torch.clamp(lr / 1.5, min=1e-5),
-                                torch.where((kl < self.desired_kl / 2.0) & (kl > 0.0),
-                                            torch.clamp(lr * 1.5, max=1e-2), lr))
-            ts.opt.step(grads, ts.lr)
-            return dict(surrogate=surr, value_loss=vloss, entropy=entropy, kl=kl, priv_reg=priv_reg,
-                        load_balancing=lb)
+        rows = len(batch["actions"]) if rows is None else rows
+        avg = functools.partial(self.shard.share, rows=rows)
+        net = ts.net
+        obs = {k: batch[k] for k in OBS_KEYS}
+        (mean, std), lb_a = net.act_lb(obs, False, dp=(self.shard, rows))
+        ratio = torch.exp(gaussian_log_prob(mean, std, batch["actions"]) - batch["logp"])
+        adv = batch["advantages"]
+        surr = avg(torch.maximum(-adv * ratio, -adv * torch.clamp(ratio, 1 - self.clip, 1 + self.clip)))
+        entropy = avg(gaussian_entropy(std))
+        value, lb_v = net.evaluate_lb(obs, dp=(self.shard, rows))
+        tv, ret = batch["values"], batch["returns"]
+        v_clip = tv + torch.clamp(value - tv, -self.clip, self.clip)
+        vloss = avg(torch.maximum((value - ret) ** 2, (v_clip - ret) ** 2).sum(-1))
+        priv_lat = net.priv_latent(batch["priv_obs"])
+        with torch.no_grad():
+            hist_lat = net.hist_latent(batch["prop_history"])
+        priv_reg = avg(torch.linalg.vector_norm(priv_lat - hist_lat, dim=-1))
+        lb = lb_a + lb_v
+        loss = (surr - self.entropy_coef * entropy + self.value_loss_coef * vloss
+                + self._priv_reg_coef_at(ts.iteration) * priv_reg + self.lb_alpha * lb)
+        with torch.no_grad():
+            kl = avg(torch.sum(torch.log(std / batch["std"] + 1e-5)
+                               + (batch["std"] ** 2 + (batch["mean"] - mean) ** 2) / (2.0 * std ** 2) - 0.5,
+                               dim=-1))
+        # the ranks' shares summed: global gradients, KL and losses (one all-reduce)
+        *grads, kl, surr, vloss, entropy, priv_reg, lb = self.shard.all_sum(
+            [*_grads(loss, ts.opt.params), kl, *(x.detach() for x in (surr, vloss, entropy, priv_reg, lb))],
+            dtype=torch.float32)
+        lr = ts.lr
+        ts.lr = torch.where(kl > self.desired_kl * 2.0, torch.clamp(lr / 1.5, min=1e-5),
+                            torch.where((kl < self.desired_kl / 2.0) & (kl > 0.0),
+                                        torch.clamp(lr * 1.5, max=1e-2), lr))
+        ts.opt.step(grads, ts.lr)
+        return dict(surrogate=surr, value_loss=vloss, entropy=entropy, kl=kl, priv_reg=priv_reg,
+                    load_balancing=lb)
 
     def update_dagger(self, ts: MimicTrainState, priv_obs, prop_history, rows: int | None = None):
         """One history-encoder minibatch (`ppo_mimic.py:326`): the history
@@ -280,15 +306,14 @@ class PPOMimic:
         """One behaviour-cloning minibatch (`ppo_mimic.py:382-396`): L2 to the
         teacher's action; the history encoder's grads are zeroed, so it
         stays as grafted. `rows` as in `update_rl`."""
-        with span("learner.minibatch"):
-            rows = len(batch["teacher_actions"]) if rows is None else rows
-            student = ts.net.act({k: batch[k] for k in OBS_KEYS}, True)[0]
-            loss = self.shard.share(torch.linalg.vector_norm(batch["teacher_actions"] - student, dim=-1), rows)
-            *grads, loss = self.shard.all_sum([*_grads(loss, ts.opt.params), loss.detach()], dtype=torch.float32)
-            frozen = {id(p) for p in ts.hist_opt.params}
-            grads = [torch.zeros_like(p) if id(p) in frozen else g for p, g in zip(ts.opt.params, grads)]
-            ts.opt.step(grads, ts.lr)
-            return loss
+        rows = len(batch["teacher_actions"]) if rows is None else rows
+        student = ts.net.act({k: batch[k] for k in OBS_KEYS}, True)[0]
+        loss = self.shard.share(torch.linalg.vector_norm(batch["teacher_actions"] - student, dim=-1), rows)
+        *grads, loss = self.shard.all_sum([*_grads(loss, ts.opt.params), loss.detach()], dtype=torch.float32)
+        frozen = {id(p) for p in ts.hist_opt.params}
+        grads = [torch.zeros_like(p) if id(p) in frozen else g for p, g in zip(ts.opt.params, grads)]
+        ts.opt.step(grads, ts.lr)
+        return loss
 
     # ------------------------------------------------------------------ learn
     def _global_slices(self, T):
@@ -306,6 +331,9 @@ class PPOMimic:
             return torch.stack([self.update_dagger(ts, flat["priv_obs"][idx], flat["prop_history"][idx], mb)
                                 for idx in slices]).mean()
 
+    # each minibatch step in its span, replayed where the rules allow, as MHPPO's
+    _minibatch = MHPPO._minibatch
+
     def learn(self, ts: MimicTrainState, rollout, perms=None):
         """The update phase of the iteration `rollout` came from: RL (with the
         DAgger pass when the rollout went through the history latent) or
@@ -320,7 +348,8 @@ class PPOMimic:
                 keys = (*OBS_KEYS, "teacher_actions")
                 flat = {k: traj[k].reshape(T * N, *traj[k].shape[2:]) for k in keys}
                 slices, mb = self._global_slices(T)
-                losses = [self.update_distill(ts, {k: v[idx] for k, v in flat.items()}, mb) for idx in slices]
+                losses = [self._minibatch(ts, "update_distill", {k: v[idx] for k, v in flat.items()}, mb)
+                          for idx in slices]
                 log.update({"Loss/bc": torch.stack(losses).mean(),
                             "Loss/kl": torch.zeros((), device=self.device), "Loss/lr": ts.lr})
             else:
@@ -335,8 +364,9 @@ class PPOMimic:
                     perms = [torch.randperm(samples, generator=self.perm_gen, device=self.device)
                              for _ in range(self.num_epochs)]
                 mb = samples // self.num_minibatches
-                metrics = [self.update_rl(ts, {k: v[self.shard.local_rows(perm[i * mb:(i + 1) * mb])]
-                                               for k, v in flat.items()}, mb)
+                metrics = [self._minibatch(ts, "update_rl",
+                                           {k: v[self.shard.local_rows(perm[i * mb:(i + 1) * mb])]
+                                            for k, v in flat.items()}, mb)
                            for perm in perms for i in range(self.num_minibatches)]
                 mean = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
                 log.update({"Loss/surrogate": mean["surrogate"], "Loss/value": mean["value_loss"],

@@ -52,6 +52,12 @@ on eager steps: a replay issues no op from Python. A replay sits inside
 its stage's span, in `engine.graph_replay` for the engine's stage and in
 `env.graph_replay` for the others. The kernels' launch counters
 (`COUNTERS`) count replays: each adds the launches its capture made.
+
+Another owner goes through the same mechanism under its own rule
+(`StageGraphs.run_step`): a learner's minibatch steps
+(`agents/mh_ppo.py::MHPPO._minibatch`), which also write held tensors in
+place (parameters and moments) and take host values written before each
+replay.
 """
 from __future__ import annotations
 
@@ -331,29 +337,44 @@ class StageGraph:
 
 
 class StageGraphs:
-    """The captured stages (`STAGES`) of one env's control steps, one a
-    stage and key. `run(env, stage, fn, *args)` runs one stage: eagerly
-    where the rules do not let it replay, else the first call at a key
-    eagerly and then captured on that call's arguments, later ones
-    replayed. `counts` holds, per stage, the graphed and the eager calls.
-    (The env is passed, not held: the env holds this.)"""
+    """The captured steps of one owner, one graph a stage and key: an env's
+    control-step stages (`run`, `STAGES`) or another owner's (`run_step`,
+    the `stages` it names). Each runs eagerly where its owner's rules do not
+    let it replay, else the first call at a key eagerly and then captured on
+    that call's arguments, later ones replayed. `counts` holds, per stage,
+    the graphed and the eager calls. (The owner is passed, not held: the
+    owner holds this.)"""
 
-    def __init__(self):
+    def __init__(self, stages=tuple(STAGES)):
         self.graphs = {}
-        self.counts = {stage: {"graphed": 0, "eager": 0} for stage in STAGES}
+        self.counts = {stage: {"graphed": 0, "eager": 0} for stage in stages}
 
     def run(self, env, stage: str, fn, *args):
+        """`fn(*args)`, the stage `stage` of `env`'s control step."""
+        ok = (engine_eligible if stage == "engine" else env_eligible)(env) and stage_eligible(env, stage)
+        return self.run_step(stage, fn, args, ok, lambda: _fixed(env), lambda: (env.gen, env.shared_gen),
+                             "engine.graph_replay" if stage == "engine" else "env.graph_replay")
+
+    def run_step(self, stage, fn, args, ok: bool, fixed_of=None, generators_of=None, replay_span=None,
+                 before=None):
+        """`fn(*args)` for `stage`: eagerly where not `ok`, else replayed
+        where a graph captured at its key holds the tensors `fixed_of()`
+        gives (by identity), its captures registering the generators
+        `generators_of()` gives. A replay sits in the span `replay_span`,
+        after `before()` has run on the host."""
         key = None
-        if (engine_eligible if stage == "engine" else env_eligible)(env) and stage_eligible(env, stage):
+        if ok:
             leaves = []
             spec = _flatten(args, leaves)
             if not any(t.requires_grad for t in leaves):
                 key = (stage, spec, tuple((t.shape, t.dtype, t.device) for t in leaves))
-                fixed = _fixed(env)
+                fixed = fixed_of()
                 graph = self.graphs.get(key)
                 if graph is not None and graph.holds(fixed):
                     self.counts[stage]["graphed"] += 1
-                    with span("engine.graph_replay" if stage == "engine" else "env.graph_replay"):
+                    with span(replay_span):
+                        if before is not None:
+                            before()
                         return graph.replay(leaves)
         self.counts[stage]["eager"] += 1
         if key is None or (key in self.graphs and self.graphs[key] is None):
@@ -361,7 +382,7 @@ class StageGraphs:
         out, syncs = _observed(fn, args)
         graph = None
         if not syncs:
-            gens = list({id(g): g for g in (env.gen, env.shared_gen)}.values())
+            gens = list({id(g): g for g in generators_of()}.values())
             graph = StageGraph(fn, spec, leaves, gens, fixed)
         self.graphs[key] = None if graph is None or graph.written else graph
         return out
